@@ -1,0 +1,264 @@
+"""The port's folding main path against the reference engine.
+
+The same TPC-H data (handed over with ``database_from_numpy``) and the same
+fuzz workloads run through ``graftdb_torch.connect(..., device="cpu")`` —
+the torch backend with every kernel's plain PyTorch version — and through
+``graftdb.connect(..., backend="pallas")``. Everything must be identical:
+query results bit for bit, every engine counter, the virtual clock, the
+backend's kernel and fallback counters, per-query stats and the EXPLAIN
+GRAFT render. Results are also held against the port's own reference
+executor. There is no tolerance: everything on this path is integer or
+float64-exact.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import graftdb
+import graftdb_torch
+from repro.relational import queries as ref_queries
+from repro_torch.api.backends import TorchBackend
+from repro_torch.relational import queries, refexec
+from repro_torch.relational.table import database_from_numpy
+
+torch.set_num_threads(2)
+
+MODES = ["isolated", "scan_sharing", "qpipe_osp", "residual", "graft"]
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def tdb(db):
+    return database_from_numpy(db.tables, db.scale_factor)
+
+
+def _workload(db, seed):
+    """Reference queries of one fuzz workload (3-5 sampled templates,
+    staggered arrivals)."""
+    rng = np.random.default_rng(seed)
+    qs, t = [], 0.0
+    for _ in range(int(rng.integers(3, 6))):
+        t += float(rng.choice([0.0, 0.002, 0.02, 0.08]))
+        qs.append(ref_queries.sample_query(db, rng, arrival=t))
+    return qs
+
+
+def _same_qids(qs):
+    """Pin query ids (each package numbers its queries on its own), so
+    per-query stats and EXPLAIN renders compare equal."""
+    return [dataclasses.replace(q, qid=10_000 + i) for i, q in enumerate(qs)]
+
+
+def _run_ref(db, qs, **cfg):
+    session = graftdb.connect(
+        db, graftdb.EngineConfig(backend="pallas", capture_explain=True, **cfg)
+    )
+    futs = session.submit_all(_same_qids(
+        [ref_queries.make_query(db, q.template, q.params, arrival=q.arrival) for q in qs]
+    ))
+    session.run()
+    return session, futs
+
+
+def _run_port(tdb, qs, **cfg):
+    session = graftdb_torch.connect(
+        tdb, graftdb_torch.EngineConfig(device="cpu", capture_explain=True, **cfg)
+    )
+    futs = session.submit_all(_same_qids(
+        [queries.make_query(tdb, q.template, q.params, arrival=q.arrival) for q in qs]
+    ))
+    session.run()
+    return session, futs
+
+
+def _assert_same(s_ref, f_ref, s_port, f_port):
+    assert len(f_ref) == len(f_port)
+    for a, b in zip(f_ref, f_port):
+        ra, rb = a.result(), b.result()
+        assert set(ra) == set(rb)
+        for k in ra:
+            np.testing.assert_array_equal(rb[k], ra[k], err_msg=f"q{a.qid}/{k}")
+        assert b.stats() == a.stats()
+        assert b.explain().render() == a.explain().render()
+    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert s_port.now == s_ref.now
+    assert s_port.backend.stats() == s_ref.backend.stats()
+
+
+def _assert_refexec(tdb, futs):
+    for f in futs:
+        got, want = f.result(), refexec.execute(tdb, f.query.plan)
+        assert set(got) == set(want)
+        for k in got:
+            np.testing.assert_allclose(
+                np.asarray(got[k], np.float64), np.asarray(want[k], np.float64), rtol=1e-9
+            )
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("mode", MODES)
+def test_port_matches_reference_session(db, tdb, mode, workers):
+    qs = _workload(db, 42_000)
+    cfg = dict(mode=mode, morsel_size=16384, workers=workers, partitions=workers)
+    s_ref, f_ref = _run_ref(db, qs, **cfg)
+    s_port, f_port = _run_port(tdb, qs, **cfg)
+    _assert_same(s_ref, f_ref, s_port, f_port)
+    _assert_refexec(tdb, f_port)
+    if mode != "isolated":
+        assert s_port.counters["kernel_chain_launches"] > 0
+    for q in qs[:2]:  # pre-flight EXPLAIN GRAFT against the final state
+        qr, qt = (
+            dataclasses.replace(m.make_query(d, q.template, q.params, arrival=s.now), qid=1)
+            for m, d, s in ((ref_queries, db, s_ref), (queries, tdb, s_port))
+        )
+        assert s_port.explain_graft(qt).render() == s_ref.explain_graft(qr).render()
+
+
+@pytest.mark.parametrize("mode", ["qpipe_osp", "graft"])
+def test_port_matches_reference_per_member_oracle(db, tdb, mode):
+    """``member_major=False``: the per-member loops probe through
+    ``probe_visible`` and the plain ``probe`` kernel instead of the chain."""
+    qs = _workload(db, 42_001)
+    cfg = dict(mode=mode, morsel_size=16384, member_major=False, workers=1)
+    s_ref, f_ref = _run_ref(db, qs, **cfg)
+    s_port, f_port = _run_port(tdb, qs, **cfg)
+    _assert_same(s_ref, f_ref, s_port, f_port)
+    _assert_refexec(tdb, f_port)
+    assert s_port.counters["kernel_chain_launches"] == 0
+    assert s_port.backend.kernel_probes > 0
+
+
+def test_port_matches_reference_under_epoch_and_admission(db, tdb):
+    """The partition pool (workers=4) with epoch retention, a memory
+    budget and adaptive admission: evictions and deferrals line up."""
+    stress = dict(
+        mode="graft", morsel_size=16384, retention="epoch", memory_budget=200_000,
+        admission="adaptive", admission_max_inflight=3,
+        admission_share_threshold=0.4, workers=4, partitions=4,
+    )
+    qs = _workload(db, 77_000)
+    s_ref, f_ref = _run_ref(db, qs, **stress)
+    s_port, f_port = _run_port(tdb, qs, **stress)
+    _assert_same(s_ref, f_ref, s_port, f_port)
+    assert s_port.counters["kernel_chain_launches"] > 0
+
+
+def test_grant_compiled_chain_matches_reference(db, tdb):
+    """Near-miss grafted repeats compile extent-scoped grants into the
+    chain launch."""
+    seq = [(750.0, 0.0), (760.0, 0.01), (750.0, 0.02), (800.0, 0.03)]
+    qs = [
+        ref_queries.make_query(db, "q3", {"segment": 1.0, "date": d}, arrival=t)
+        for d, t in seq
+    ]
+    s_ref, f_ref = _run_ref(db, qs, mode="graft", morsel_size=16384, workers=1)
+    s_port, f_port = _run_port(tdb, qs, mode="graft", morsel_size=16384, workers=1)
+    _assert_same(s_ref, f_ref, s_port, f_port)
+    _assert_refexec(tdb, f_port)
+
+
+def test_reference_backend_matches_reference(db, tdb):
+    qs = _workload(db, 42_002)
+    s_ref, f_ref = _run_ref(db, qs, mode="graft", morsel_size=16384, workers=1)
+    session = graftdb_torch.connect(
+        tdb, graftdb_torch.EngineConfig(mode="graft", morsel_size=16384, workers=1,
+                                        backend="reference")
+    )
+    futs = session.submit_all(
+        [queries.make_query(tdb, q.template, q.params, arrival=q.arrival) for q in qs]
+    )
+    session.run()
+    for a, b in zip(f_ref, futs):
+        for k, v in a.result().items():
+            np.testing.assert_array_equal(b.result()[k], v)
+
+
+# ---------------------------------------------------------------------------
+# configuration surface
+# ---------------------------------------------------------------------------
+
+
+def test_config_defaults_to_the_card():
+    cfg = graftdb_torch.EngineConfig()
+    assert cfg.backend == "torch" and cfg.device == "cuda"
+    assert cfg.morsel_size == 65536
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(faults=object()),
+        dict(retention="epoch", reuse_cache_budget=1 << 20),
+        dict(reuse_disk_budget=1 << 20),
+        dict(batch_planning=True),
+        dict(mesh="smoke"),
+    ],
+)
+def test_unported_planes_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        graftdb_torch.EngineConfig(**kw)
+
+
+@pytest.mark.parametrize("flag", ["use_agg_kernel", "use_insert_kernel"])
+def test_unported_kernel_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        TorchBackend(device="cpu", **{flag: True})
+
+
+def test_cuda_without_card_raises(tdb):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        graftdb_torch.connect(tdb)
+
+
+_ISOLATION = """
+import sys
+import numpy as np
+import torch
+import graftdb_torch
+from graftdb_torch import EngineConfig
+from repro_torch.relational import queries, refexec, tpch
+
+db = tpch.get_database(0.002, seed=7)
+session = graftdb_torch.connect(db, EngineConfig(mode="graft", device="cpu", morsel_size=2048))
+rng = np.random.default_rng(3)
+futs = session.submit_all([queries.sample_query(db, rng) for _ in range(3)])
+session.run()
+for f in futs:
+    want = refexec.execute(db, f.query.plan)
+    for k, v in f.result().items():
+        np.testing.assert_allclose(np.asarray(v, float), np.asarray(want[k], float), rtol=1e-9)
+assert session.counters["kernel_chain_launches"] > 0
+leaked = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")
+)
+assert not leaked, leaked
+assert EngineConfig().device == "cuda"
+if not torch.cuda.is_available():
+    try:
+        graftdb_torch.connect(db)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("connect() without a card did not raise")
+print("isolated")
+"""
+
+
+def test_port_imports_nothing_of_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", _ISOLATION], env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "isolated" in out.stdout

@@ -30,7 +30,6 @@ line is ``{"ok": true, "device": {...}}``. Details go to
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -42,6 +41,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
+
+#: the main path's TPC-H scale factor, the twin leg's, the number of
+#: sampled queries and the seed of data and workload
+SCALE = 1.0
+TWIN_SCALE = 0.1
+N_QUERIES = 12
+SEED = 7
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, and the
 #: CUDA-core float32 rate, used as the ALU rate of 32-bit integer work
@@ -215,12 +221,13 @@ def orders_table(db):
     return keys, ent.tkeys, ent.slot_entry.astype(np.int32), pow2_at_least(len(keys), 256)
 
 
-def kernel_inputs(db, dev, n_probe=65_536, seed=0):
+def kernel_inputs(db, n_probe=65_536, seed=0):
     """SF-shaped inputs of every kernel: probe keys (half hits) against the
     orders table, entry-indexed lens words with a few live slots, and a
     two-stage chain with grants, filters and a build sink."""
     import torch
 
+    dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     keys, tkeys, tentry, ecap = orders_table(db)
     e = len(keys)
@@ -336,8 +343,10 @@ def compare(name, args, timed=True, iters=20):
 
 class Recorder:
     """Keeps the largest call of each kernel wrapper that the backend
-    makes (inputs cloned at call time: the mirrors are patched in place
-    afterwards), so the main path's own inputs can be replayed."""
+    makes, so the main path's own inputs can be replayed after the legs.
+    The inputs are kept by reference, not copied, so the legs' wall times
+    carry no recording cost: the replay sees that call's shapes and keys,
+    and the mirrors as the backend left them (patched in place later)."""
 
     def __init__(self):
         import repro_torch.api.backends as backends
@@ -358,11 +367,7 @@ class Recorder:
             n = args[1][0].shape[0] if name == "fused_chain" else args[0].shape[0]
             best = self.calls.get(name)
             if best is None or n > best[0]:
-                if name == "fused_chain":
-                    kept = (args[0], [a.clone() for a in args[1]])
-                else:
-                    kept = tuple(a.clone() for a in args)
-                self.calls[name] = (n, kept)
+                self.calls[name] = (n, (args[0], list(args[1])) if name == "fused_chain" else args)
             return orig(*args)
 
         return call
@@ -465,15 +470,11 @@ def q5_pair(db):
     ]
 
 
-def smoke(dev, args, report):
-    """Phases 2-5 on ``dev``; returns the kernels' JSON rows. Sessions of
-    the main path use the default config, which is on the card."""
-    import torch
-
+def smoke(report):
+    """Phases 2-5; returns the kernels' JSON rows. Sessions of the main
+    path use the default config, which is on the card."""
     from repro_torch.kernels import _build
     from repro_torch.relational import refexec, tpch
-
-    on_card = {} if dev.type == "cuda" else {"device": dev.type}
 
     # 2. build
     secs = _build.build()
@@ -486,10 +487,10 @@ def smoke(dev, args, report):
 
     # 3. kernels at the SF's shapes, before the main path
     t0 = time.perf_counter()
-    db = tpch.get_database(args.scale, seed=args.seed)
-    log(f"data: TPC-H SF {args.scale} in {time.perf_counter() - t0:.1f} s "
+    db = tpch.get_database(SCALE, seed=SEED)
+    log(f"data: TPC-H SF {SCALE} in {time.perf_counter() - t0:.1f} s "
         f"({db.nbytes() / 1e6:.0f} MB, lineitem {db['lineitem'].nrows} rows)")
-    inputs = kernel_inputs(db, dev)
+    inputs = kernel_inputs(db)
     synth = {}
     for kname, kin in inputs.items():
         rec = compare(kname.replace("_rich", ""), kin)
@@ -500,13 +501,14 @@ def smoke(dev, args, report):
     del inputs
 
     # 4. the main path at the full scale
-    qs = workload(db, args.queries, args.seed)
+    qs = workload(db, N_QUERIES, SEED)
     pair = q5_pair(db)
     log(f"workload: {[q.template for q in qs]}")
     t0 = time.perf_counter()
     expected = [refexec.execute(db, q.plan) for q in qs]
     expected_pair = [refexec.execute(db, q.plan) for q in pair]
-    log(f"reference executor: {time.perf_counter() - t0:.1f} s")
+    report["reference_executor_s"] = time.perf_counter() - t0
+    log(f"reference executor: {report['reference_executor_s']:.1f} s")
     legs = (
         ("graft", dict(mode="graft"), qs, expected),
         ("isolated", dict(mode="isolated"), qs, expected),
@@ -518,7 +520,7 @@ def smoke(dev, args, report):
     report["legs"] = {}
     try:
         for label, cfg, lqs, want in legs:
-            session, results, wall = run_session(db, lqs, **on_card, **cfg)
+            session, results, wall = run_session(db, lqs, **cfg)
             check_results(label, results, want)
             summ = leg_summary(session, wall)
             report["legs"][label] = summ
@@ -549,25 +551,18 @@ def smoke(dev, args, report):
 
     # 5. twin: card and CPU give identical runs
     t0 = time.perf_counter()
-    tdb = tpch.get_database(args.twin_scale, seed=args.seed)
-    tqs = workload(tdb, args.queries, args.seed)
+    tdb = tpch.get_database(TWIN_SCALE, seed=SEED)
+    tqs = workload(tdb, N_QUERIES, SEED)
     report["twin"] = {
-        "graft": twin(tdb, tqs, (dev.type, "cpu"), mode="graft"),
-        "graft_per_member": twin(tdb, tqs, (dev.type, "cpu"), mode="graft", member_major=False),
+        "graft": twin(tdb, tqs, ("cuda", "cpu"), mode="graft"),
+        "graft_per_member": twin(tdb, tqs, ("cuda", "cpu"), mode="graft", member_major=False),
     }
-    log(f"twin SF {args.twin_scale}: {dev.type} == cpu (results, counters, clock) "
+    log(f"twin SF {TWIN_SCALE}: cuda == cpu (results, counters, clock) "
         f"in {time.perf_counter() - t0:.1f} s")
     return rows
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", type=float, default=1.0, help="TPC-H scale factor of the main path")
-    ap.add_argument("--twin-scale", type=float, default=0.1)
-    ap.add_argument("--queries", type=int, default=12)
-    ap.add_argument("--seed", type=int, default=7)
-    args = ap.parse_args(argv)
-
+def main():
     import torch
 
     if not torch.cuda.is_available():
@@ -588,7 +583,7 @@ def main(argv=None):
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     report = {"device": {"name": name, "nvidia_smi": smi}}
 
-    rows = smoke(torch.device("cuda"), args, report)
+    rows = smoke(report)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

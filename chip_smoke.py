@@ -11,20 +11,31 @@ itself and drives ``graftdb_torch``. Phases:
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels at SF-1 shapes: each kernel against its plain PyTorch version
    on the card (N = 65,536 probe keys into the orders-state table:
-   1.5 M entries, 2^22 slots); outputs are integers, so equality is exact;
+   1.5 M entries, 2^22 slots; the batch insert of the 1.5 M order keys
+   into 2^22 slots, its plain version on host copies; the segmented sum
+   of 65,536 rows into 8 and 4,096 groups). Probe and insert outputs are
+   integers and the segmented sum fixes its order of additions, which
+   its plain version repeats, so every comparison is exact;
 4. main path: ``graftdb_torch.connect`` at TPC-H SF 1 with the default
    config (torch backend on the card, 65,536-row morsels), 12 sampled
    queries with staggered arrivals, in graft mode, isolated mode, and
-   graft mode through the per-member loops; every result is checked
-   against the port's reference executor, and every kernel must have
-   launched. The largest launch of each kernel is recorded and replayed
-   against its plain version, and timed;
-5. twin: the same workload at SF 0.1 on the card and on the CPU (plain
-   versions) must give identical results, counters and virtual clocks.
+   graft mode through the per-member loops, plus two concurrent q5s;
+   every result equals the port's reference executor (rtol 1e-9), and
+   the probe and chain kernels must have launched. Then the opt-in leg:
+   graft mode with ``TorchBackend(use_insert_kernel=True,
+   use_agg_kernel=True)``, its results within rtol 1e-5 of the reference
+   executor (the aggregate kernel sums in float32), the batch-insert and
+   segmented-sum kernels launched. Launch counts are reset before each of
+   the two and read after it. The largest launch of each kernel is
+   recorded and replayed against its plain version, and timed;
+5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
+   versions), in the default and the opt-in configuration, must give
+   identical results, counters, backend stats and virtual clocks.
 
-Any failure exits non-zero. The line before the last is a JSON object
-with each kernel's launches, error, time, plain time and bound; the last
-line is ``{"ok": true, "device": {...}}``. Details go to
+Any failure exits non-zero. Before the last line come a JSON object with
+each kernel's launches, error, time, plain time, bound and library time,
+and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -63,7 +74,19 @@ KERNELS = {
                                 "src/repro/kernels/hash_probe.py:242"),
     "hash_probe_lens": ("src/repro_torch/kernels/csrc/hash_probe.cu",
                         "src/repro/kernels/hash_probe.py:50"),
+    "hash_probe_lens_multi": ("src/repro_torch/kernels/csrc/hash_probe.cu",
+                              "src/repro/kernels/hash_probe.py:105"),
+    "hash_build_insert": ("src/repro_torch/kernels/csrc/hash_probe.cu",
+                          "src/repro/kernels/hash_probe.py:317"),
+    "seg_aggregate": ("src/repro_torch/kernels/csrc/seg_aggregate.cu",
+                      "src/repro/kernels/seg_aggregate.py:21"),
 }
+#: kernels each path must launch: the default config's legs, and the
+#: opt-in leg. ``hash_probe_lens_multi`` is on no engine path (the
+#: backend probes through the 64-bit variant); phase 3 checks it.
+MAIN_KERNELS = ("fused_chain", "hash_probe_lens64", "hash_probe_lens_multi64", "hash_probe_lens")
+OPTIN_KERNELS = ("hash_build_insert", "seg_aggregate")
+OPTIN = dict(use_insert_kernel=True, use_agg_kernel=True)
 
 
 def log(*a):
@@ -90,6 +113,14 @@ def time_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_ms(fn):
+    """Milliseconds of one call of ``fn`` on the host clock (for plain
+    versions that run on host copies)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def probe_touch(keys, tkeys):
@@ -138,12 +169,35 @@ def probe_bound(name, args):
     nbytes = 4 * n + 4 * slots
     if name == "hash_probe_lens":
         nbytes += 4 * n_hit + 4 + 4 * n  # slot vis words, mask, slots out
+    elif name == "hash_probe_lens_multi":
+        nbytes += 4 * n_hit + 8 * n  # slot vis words, slots and words out
     else:
         entries = args[2][hit].to(torch.int64)
         n_ent = int(torch.unique(entries).numel())
         nbytes += 4 * n_hit + 8 * n_ent
         nbytes += 8 + 4 * n if name == "hash_probe_lens64" else 12 * n
     return bound(nbytes, 4 * steps + 4 * n)
+
+
+def insert_bound(keys, cap, tkeys):
+    """A batch insert must read each key once and write both tables and
+    ``ok`` once; it hashes each key and compares once per probe step of
+    its placement (counted from the table it built)."""
+    import torch
+
+    from repro_torch.kernels.hash_probe import EMPTY, _hash
+
+    slots = torch.nonzero(tkeys != EMPTY).squeeze(1)
+    steps = int((((slots - _hash(tkeys[slots], cap)) & (cap - 1)) + 1).sum())
+    n = keys.shape[0]
+    return bound(4 * n + 8 * cap + 4, 4 * n + 2 * steps)
+
+
+def seg_bound(codes, values, n_groups):
+    """A segmented sum must read each code and value once, write each sum
+    once, and add each value once."""
+    n, v = values.shape
+    return bound(4 * n + 4 * n * v + 4 * n_groups * v, n * v)
 
 
 def chain_bound(spec, arrays, flat):
@@ -222,9 +276,12 @@ def orders_table(db):
 
 
 def kernel_inputs(db, n_probe=65_536, seed=0):
-    """SF-shaped inputs of every kernel: probe keys (half hits) against the
-    orders table, entry-indexed lens words with a few live slots, and a
-    two-stage chain with grants, filters and a build sink."""
+    """SF-shaped inputs of every kernel, by label: (kernel, arguments).
+    Probe keys (half hits) against the orders table, entry-indexed lens
+    words with a few live slots (and their slot-indexed low halves), a
+    two-stage chain with grants, filters and a build sink, the order keys
+    for a fresh 2^22-slot batch insert, and 65,536 rows of one float32
+    value column summed into 8 and into 4,096 groups."""
     import torch
 
     dev = torch.device("cuda")
@@ -246,6 +303,7 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
 
     k, tk, te, lo, hi = t(probe), t(tkeys), t(tentry), t(evlo), t(evhi)
     ones = torch.ones_like(tk)
+    slot_vis = torch.where(te >= 0, lo[te.clamp(min=0).to(torch.int64)], 0)
     all_mask = torch.full((1,), -1, dtype=torch.int32, device=dev)
     lens_mask = t(np.array([1 << 5, 1 << 7], np.uint32).view(np.int32))
 
@@ -289,12 +347,18 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
     # the main pipeline's shape: one grant-free stage, no filter, no sink
     plain_spec = (((-1, 0, 0, None),), False)
     simple = (plain_spec, [bits_lo, bits_hi, k, tk, te, lo, hi, arrays[7], arrays[8]])
+    codes = {g: t(rng.integers(0, g, n_probe).astype(np.int32)) for g in (8, 4096)}
+    vals = t(rng.normal(size=(n_probe, 1)).astype(np.float32))
     return {
-        "hash_probe_lens": (k, tk, ones, all_mask),
-        "hash_probe_lens64": (k, tk, te, lo, hi, lens_mask),
-        "hash_probe_lens_multi64": (k, tk, te, lo, hi),
-        "fused_chain": simple,
-        "fused_chain_rich": rich,
+        "hash_probe_lens": ("hash_probe_lens", (k, tk, ones, all_mask)),
+        "hash_probe_lens64": ("hash_probe_lens64", (k, tk, te, lo, hi, lens_mask)),
+        "hash_probe_lens_multi64": ("hash_probe_lens_multi64", (k, tk, te, lo, hi)),
+        "hash_probe_lens_multi": ("hash_probe_lens_multi", (k, tk, slot_vis)),
+        "fused_chain": ("fused_chain", simple),
+        "fused_chain_rich": ("fused_chain", rich),
+        "hash_build_insert": ("hash_build_insert", (t(keys.astype(np.int32)), len(tkeys))),
+        "seg_aggregate_g8": ("seg_aggregate", (codes[8], vals, 8)),
+        "seg_aggregate_g4096": ("seg_aggregate", (codes[4096], vals, 4096)),
     }
 
 
@@ -306,16 +370,47 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
 def kernel_pair(name):
     from repro_torch.kernels import fused_chain as fc
     from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import seg_aggregate as sa
 
-    if name.startswith("fused_chain"):
+    if name == "fused_chain":
         return (lambda spec, arrays: fc.chain_launch(spec, arrays),
                 lambda spec, arrays: fc.chain_plain(spec, arrays))
+    if name == "hash_build_insert":
+        # the plain version loops over host integers: it runs on CPU copies
+        return hp.hash_build_insert, lambda keys, cap: hp.hash_build_insert_plain(keys.cpu(), cap)
+    if name == "seg_aggregate":
+        return sa.seg_aggregate, sa.seg_aggregate_plain
     return getattr(hp, name), getattr(hp, name + "_plain")
+
+
+def max_abs_err(name, got, want):
+    """Largest absolute difference of kernel and plain outputs; floats must
+    also agree bit for bit. A batch insert's tables are compared only where
+    ``ok`` is 1 (the kernel stops at its first failure); ``ok`` always."""
+    import torch
+
+    if name == "hash_build_insert" and int(want[2][0]) == 0:
+        got, want = got[2:], want[2:]
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} != plain {tuple(w.shape)}")
+        if not g.numel():
+            continue
+        if g.is_floating_point():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"{name}: kernel and plain version differ in their bits")
+        else:
+            err = max(err, float((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    return err
 
 
 def compare(name, args, timed=True, iters=20):
     """Run a kernel and its plain version on the same card inputs; require
-    exact equality; return error, times and bound."""
+    exact equality; return error, times, bound and, where one PyTorch call
+    computes the same function, that call's time."""
     import torch
 
     kern, plain = kernel_pair(name)
@@ -323,27 +418,37 @@ def compare(name, args, timed=True, iters=20):
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = 0
-    for g, w_ in zip(got, want):
-        if g.shape != w_.shape:
-            raise AssertionError(f"{name}: shape {tuple(g.shape)} != plain {tuple(w_.shape)}")
-        err = max(err, int((g.to(torch.int64) - w_.to(torch.int64)).abs().max()) if g.numel() else 0)
+    err = max_abs_err(name, got, want)
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain version (max abs {err})")
-    rec = {"max_abs_err": float(err)}
-    if timed:
-        rec["ms"] = time_ms(lambda: kern(*args), iters)
-        rec["plain_ms"] = time_ms(lambda: plain(*args), max(2, iters // 4))
-        if name.startswith("fused_chain"):
-            rec["bound_ms"], rec["bound_by"] = chain_bound(args[0], args[1], got[0])
-        else:
-            rec["bound_ms"], rec["bound_by"] = probe_bound(name, args)
+    rec = {"max_abs_err": err, "library_ms": None}
+    if not timed:
+        return rec
+    if name == "hash_build_insert":  # sequential: ~0.1-1 s a call on the card
+        rec["ms"] = time_ms(lambda: kern(*args), 3)
+        rec["plain_ms"] = host_ms(lambda: plain(*args))
+        rec["plain_on"] = "host"
+        rec["bound_ms"], rec["bound_by"] = insert_bound(args[0], args[1], got[0])
+        return rec
+    rec["ms"] = time_ms(lambda: kern(*args), iters)
+    rec["plain_ms"] = time_ms(lambda: plain(*args), max(2, iters // 4))
+    if name == "fused_chain":
+        rec["bound_ms"], rec["bound_by"] = chain_bound(args[0], args[1], got[0])
+    elif name == "seg_aggregate":
+        codes, vals, g = args
+        rec["bound_ms"], rec["bound_by"] = seg_bound(codes, vals, g)
+        rec["library_ms"] = time_ms(
+            lambda: torch.zeros(g, vals.shape[1], device=vals.device).index_add_(0, codes, vals),
+            iters,
+        )
+    else:
+        rec["bound_ms"], rec["bound_by"] = probe_bound(name, args)
     return rec
 
 
 class Recorder:
     """Keeps the largest call of each kernel wrapper that the backend
-    makes, so the main path's own inputs can be replayed after the legs.
+    makes (of the batch insert, the largest that built a servable table), so the main path's own inputs can be replayed after the legs.
     The inputs are kept by reference, not copied, so the legs' wall times
     carry no recording cost: the replay sees that call's shapes and keys,
     and the mirrors as the backend left them (patched in place later)."""
@@ -357,18 +462,28 @@ class Recorder:
         for fn_name, name in (("hash_probe_lens", "hash_probe_lens"),
                               ("hash_probe_lens64", "hash_probe_lens64"),
                               ("hash_probe_lens_multi64", "hash_probe_lens_multi64"),
-                              ("chain_launch", "fused_chain")):
+                              ("chain_launch", "fused_chain"),
+                              ("hash_build_insert", "hash_build_insert"),
+                              ("seg_aggregate", "seg_aggregate")):
             orig = getattr(backends, fn_name)
             self.saved[fn_name] = orig
             setattr(backends, fn_name, self._wrap(orig, name))
 
     def _wrap(self, orig, name):
         def call(*args):
-            n = args[1][0].shape[0] if name == "fused_chain" else args[0].shape[0]
+            out = orig(*args)
+            if name == "hash_build_insert" and not int(out[2][0]):
+                return out  # keep the largest rebuild that built a table
+            if name == "fused_chain":
+                size = args[1][0].shape[0]
+            elif name == "seg_aggregate":
+                size = (args[0].shape[0], args[2])  # rows, then groups
+            else:
+                size = args[0].shape[0]
             best = self.calls.get(name)
-            if best is None or n > best[0]:
-                self.calls[name] = (n, (args[0], list(args[1])) if name == "fused_chain" else args)
-            return orig(*args)
+            if best is None or size > best[0]:
+                self.calls[name] = (size, (args[0], list(args[1])) if name == "fused_chain" else args)
+            return out
 
         return call
 
@@ -407,9 +522,11 @@ def run_session(db, qs, **cfg):
     return session, [f.result() for f in futs], wall
 
 
-def check_results(label, results, expected):
-    """Sorted-column allclose (rtol 1e-9) against the reference executor:
-    same columns, same row counts, equal values."""
+def check_results(label, results, expected, rtol=1e-9):
+    """Sorted-column allclose against the reference executor: same
+    columns, same row counts, values within ``rtol``. Returns the largest
+    relative difference seen."""
+    worst = 0.0
     for i, (got, want) in enumerate(zip(results, expected)):
         if set(got) != set(want):
             raise AssertionError(f"{label}/q{i}: columns {sorted(got)} != {sorted(want)}")
@@ -418,7 +535,11 @@ def check_results(label, results, expected):
             b = np.sort(np.asarray(want[k], np.float64))
             if a.shape != b.shape:
                 raise AssertionError(f"{label}/q{i}/{k}: shape {a.shape} vs {b.shape}")
-            np.testing.assert_allclose(a, b, rtol=1e-9, err_msg=f"{label}/q{i}/{k}")
+            np.testing.assert_allclose(a, b, rtol=rtol, err_msg=f"{label}/q{i}/{k}")
+            nz = b != 0
+            if nz.any():
+                worst = max(worst, float(np.max(np.abs(a[nz] - b[nz]) / np.abs(b[nz]))))
+    return worst
 
 
 def leg_summary(session, wall):
@@ -432,10 +553,16 @@ def leg_summary(session, wall):
     }
 
 
-def twin(db, qs, devices, **cfg):
-    """The same workload on two devices must give identical runs."""
-    s_gpu, r_gpu, _ = run_session(db, qs, device=devices[0], **cfg)
-    s_cpu, r_cpu, _ = run_session(db, qs, device=devices[1], **cfg)
+def twin(db, qs, optin=False, **cfg):
+    """The same workload on the card and on the CPU must give identical
+    runs, in the default config or (``optin``) with the opt-in kernels."""
+    from repro_torch.api.backends import TorchBackend
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        where = dict(backend=TorchBackend(device=dev, **OPTIN)) if optin else dict(device=dev)
+        runs.append(run_session(db, qs, **where, **cfg))
+    (s_gpu, r_gpu, _), (s_cpu, r_cpu, _) = runs
     for i, (a, b) in enumerate(zip(r_gpu, r_cpu)):
         if set(a) != set(b):
             raise AssertionError(f"twin/q{i}: columns differ")
@@ -470,9 +597,38 @@ def q5_pair(db):
     ]
 
 
+def run_legs(db, legs, required, label_launches, report):
+    """Run sessions on the card, reset the launch counts before them and
+    read them after; every result within its tolerance of the reference
+    executor and every ``required`` kernel launched."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    for label, cfg, lqs, want, rtol in legs:
+        session, results, wall = run_session(db, lqs, **cfg)
+        worst = check_results(label, results, want, rtol)
+        summ = leg_summary(session, wall)
+        summ["max_rel_err"] = worst
+        report["legs"][label] = summ
+        log(f"leg {label}: results == refexec (rtol {rtol}, largest {worst:.3g}); wall {wall:.2f} s, "
+            f"clock {session.now!r} s, chain launches {summ['chain_launches']}, "
+            f"fallbacks {summ['fallbacks']}")
+    launches = _build.launch_counts()
+    report["launches"][label_launches] = launches
+    log(f"launches on the {label_launches} path: {launches}")
+    missing = [k for k in required if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {label_launches} path: {missing}")
+    return launches
+
+
 def smoke(report):
     """Phases 2-5; returns the kernels' JSON rows. Sessions of the main
-    path use the default config, which is on the card."""
+    path use the default config, which is on the card; the opt-in leg
+    hands the engine a ``TorchBackend`` on the card with both flags."""
+    import torch
+
+    from repro_torch.api.backends import TorchBackend
     from repro_torch.kernels import _build
     from repro_torch.relational import refexec, tpch
 
@@ -492,15 +648,20 @@ def smoke(report):
         f"({db.nbytes() / 1e6:.0f} MB, lineitem {db['lineitem'].nrows} rows)")
     inputs = kernel_inputs(db)
     synth = {}
-    for kname, kin in inputs.items():
-        rec = compare(kname.replace("_rich", ""), kin)
-        synth[kname] = rec
-        log(f"kernel {kname}: equal to plain; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+    for label, (kname, kin) in inputs.items():
+        rec = compare(kname, kin)
+        synth[label] = rec
+        lib = "" if rec["library_ms"] is None else f", index_add_ {rec['library_ms']:.4f} ms"
+        log(f"kernel {label}: equal to plain; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}{lib})")
+    a, b = (kernel_pair("seg_aggregate")[0](*inputs["seg_aggregate_g4096"][1]) for _ in range(2))
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("seg_aggregate: two calls on the same inputs differ")
+    log("kernel seg_aggregate: two calls give the same bits")
     report["kernels_sf_shapes"] = synth
     del inputs
 
-    # 4. the main path at the full scale
+    # 4. the main path at the full scale: the default config, then opt-in
     qs = workload(db, N_QUERIES, SEED)
     pair = q5_pair(db)
     log(f"workload: {[q.template for q in qs]}")
@@ -510,54 +671,54 @@ def smoke(report):
     report["reference_executor_s"] = time.perf_counter() - t0
     log(f"reference executor: {report['reference_executor_s']:.1f} s")
     legs = (
-        ("graft", dict(mode="graft"), qs, expected),
-        ("isolated", dict(mode="isolated"), qs, expected),
-        ("graft_per_member", dict(mode="graft", member_major=False), qs, expected),
-        ("graft_q5_pair", dict(mode="graft"), pair, expected_pair),
+        ("graft", dict(mode="graft"), qs, expected, 1e-9),
+        ("isolated", dict(mode="isolated"), qs, expected, 1e-9),
+        ("graft_per_member", dict(mode="graft", member_major=False), qs, expected, 1e-9),
+        ("graft_q5_pair", dict(mode="graft"), pair, expected_pair, 1e-9),
+    )
+    optin_leg = (
+        ("graft_opt_in", dict(mode="graft", backend=TorchBackend(device="cuda", **OPTIN)),
+         qs, expected, 1e-5),
     )
     recorder = Recorder()
-    _build.reset_launch_counts()
-    report["legs"] = {}
+    report["legs"], report["launches"] = {}, {}
     try:
-        for label, cfg, lqs, want in legs:
-            session, results, wall = run_session(db, lqs, **cfg)
-            check_results(label, results, want)
-            summ = leg_summary(session, wall)
-            report["legs"][label] = summ
-            log(f"leg {label}: results == refexec; wall {wall:.2f} s, clock {session.now!r} s, "
-                f"chain launches {summ['chain_launches']}, fallbacks {summ['fallbacks']}")
+        default_launches = run_legs(db, legs, MAIN_KERNELS, "default", report)
+        optin_launches = run_legs(db, optin_leg, OPTIN_KERNELS, "opt-in", report)
     finally:
         recorder.restore()
-    launches = _build.launch_counts()
-    log(f"launches on the main path: {launches}")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
 
     rows = []
     for kname, (src, replaces) in KERNELS.items():
-        n, kin = recorder.calls[kname]
-        rec = compare(kname, kin)
-        log(f"main-path replay {kname} (N={n}): equal to plain; {rec['ms']:.4f} ms "
-            f"(plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        if kname in recorder.calls:
+            size, kin = recorder.calls[kname]
+            rec = compare(kname, kin)
+            where = f"main-path replay {kname} (size {size})"
+        else:  # on no engine path: its phase-3 numbers
+            size, rec = None, synth[kname]
+            where = f"kernel {kname} (phase 3)"
+        log(f"{where}: equal to plain; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
+        runs = optin_launches if kname in OPTIN_KERNELS else default_launches
         rows.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": int(launches[kname]), "max_abs_err": rec["max_abs_err"],
+            "launches": int(runs.get(kname, 0)), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None, "n_rows": n,
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "size": size,
         })
     report["kernels"] = rows
     del recorder, db
 
-    # 5. twin: card and CPU give identical runs
+    # 5. twins: card and CPU give identical runs
     t0 = time.perf_counter()
     tdb = tpch.get_database(TWIN_SCALE, seed=SEED)
     tqs = workload(tdb, N_QUERIES, SEED)
     report["twin"] = {
-        "graft": twin(tdb, tqs, ("cuda", "cpu"), mode="graft"),
-        "graft_per_member": twin(tdb, tqs, ("cuda", "cpu"), mode="graft", member_major=False),
+        "graft": twin(tdb, tqs, mode="graft"),
+        "graft_per_member": twin(tdb, tqs, mode="graft", member_major=False),
+        "graft_opt_in": twin(tdb, tqs, optin=True, mode="graft"),
     }
-    log(f"twin SF {TWIN_SCALE}: cuda == cpu (results, counters, clock) "
+    log(f"twins SF {TWIN_SCALE}: cuda == cpu (results, counters, backend stats, clock) "
         f"in {time.perf_counter() - t0:.1f} s")
     return rows
 

@@ -9,7 +9,8 @@ build state (§4.3) and segmented aggregation into shared accumulators
   available; the correctness oracle path (``relational/refexec.py``
   semantics).
 * ``TorchBackend`` — the hand-written CUDA kernels of ``kernels/
-  hash_probe.py`` and ``kernels/fused_chain.py`` over device-resident
+  hash_probe.py`` and ``kernels/fused_chain.py`` (and, opt-in, of
+  ``kernels/seg_aggregate.py``) over device-resident
   state mirrors on a CUDA card, or the kernels' plain PyTorch versions
   with ``device="cpu"``. States that the kernels cannot serve
   (multi-match keys, out-of-range keycodes, over-long probe clusters)
@@ -43,10 +44,12 @@ from ..kernels.hash_probe import (
     EMPTY,
     MAX_PROBE,
     MULT,
+    hash_build_insert,
     hash_probe_lens,
     hash_probe_lens64,
     hash_probe_lens_multi64,
 )
+from ..kernels.seg_aggregate import seg_aggregate
 
 #: chain-level / probe-level decline reasons (DESIGN.md §13). ``grants``,
 #: ``predicate`` and ``slot_limit`` are chain-plan declines (the staged
@@ -191,11 +194,19 @@ class TorchBackend:
 
     Probe-table maintenance is batch-oriented: new keys insert via
     vectorized per-slot winner election (``_batch_insert``) on the host,
-    and the whole table is uploaded again after each batch insert.
-    Segmented sums stay in float64 on the host (``np.bincount``), which
-    preserves exact oracle parity. The reference's opt-in float32
-    aggregate kernel and batch-insert kernel are not ported yet:
-    ``use_agg_kernel`` / ``use_insert_kernel`` raise.
+    and the whole table is uploaded again after each batch insert. With
+    ``use_insert_kernel`` a full rebuild runs the batch-insert kernel
+    (``hash_build_insert``) on the device instead, which places the keys
+    in batch order, as the reference's kernel does; a table it flags
+    (``ok == 0``) is marked bad and its state probes through the reference
+    path. Incremental inserts keep the host winner election.
+
+    Segmented sums stay in float64 on the host (``np.bincount``) by
+    default, which preserves exact oracle parity. With ``use_agg_kernel``
+    a sum over at most ``max_kernel_groups`` groups runs the segmented
+    aggregate kernel instead; it adds in float64 but rounds each call's
+    sums to float32, as the reference's kernel returns them, so results
+    then match the oracle within float32 rounding only.
     """
 
     name = "torch"
@@ -207,19 +218,13 @@ class TorchBackend:
     def __init__(
         self,
         device: str = "cuda",
+        max_kernel_groups: int = 4096,
         use_agg_kernel: bool = False,
         use_insert_kernel: bool = False,
     ):
-        if use_agg_kernel:
-            raise NotImplementedError(
-                "use_agg_kernel needs the segmented-aggregate kernel, which "
-                "the port does not have yet (ROADMAP A4, kernel B7)"
-            )
-        if use_insert_kernel:
-            raise NotImplementedError(
-                "use_insert_kernel needs the batch-insert kernel, which the "
-                "port does not have yet (ROADMAP A4, kernel B6)"
-            )
+        self.max_kernel_groups = max_kernel_groups
+        self.use_agg_kernel = use_agg_kernel
+        self.use_insert_kernel = use_insert_kernel
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
@@ -745,30 +750,38 @@ class TorchBackend:
     def _insert_keys(self, ent: "_ProbeTable", keys, n: int) -> None:
         """Insert keys[ent.n:n] into the table, rebuilding at a larger
         capacity when the 50% load factor would be exceeded. Insertion is
-        one batched winner-election pass — never a per-key Python loop.
-        Rebuilds reassign table slots but leave the entry-indexed mirrors
-        untouched (they are keyed by entry id, not slot — the §13
-        incremental-maintenance invariant). The whole table is uploaded
-        again after each insert."""
+        one batched winner-election pass (or the batch-insert kernel on
+        full rebuilds when ``use_insert_kernel`` is set) — never a per-key
+        Python loop. Rebuilds reassign table slots but leave the
+        entry-indexed mirrors untouched (they are keyed by entry id, not
+        slot — the §13 incremental-maintenance invariant). After a host
+        insert the whole table is uploaded again; a kernel rebuild leaves
+        it on the device and copies it to the host."""
         new = keys[ent.n : n]
         if len(new) and (new.min() < 0 or new.max() > self._KEY_LIMIT):
             ent.bad = True
             return
-        if ent.tkeys is None or 2 * n > len(ent.tkeys):
+        rebuild = ent.tkeys is None or 2 * n > len(ent.tkeys)
+        on_device = rebuild and self.use_insert_kernel
+        if rebuild:
             cap = 1
             while cap < 2 * n:
                 cap *= 2
+        if on_device:
+            ok = self._kernel_rebuild(ent, keys[:n], cap)
+        elif rebuild:
             ent.tkeys = np.full(cap, EMPTY, dtype=np.int32)
             ent.slot_entry = np.full(cap, -1, dtype=np.int64)
-            if not self._batch_insert(ent, keys[:n], 0):
-                ent.bad = True
-                return
-        elif not self._batch_insert(ent, keys[ent.n : n], ent.n):
+            ok = self._batch_insert(ent, keys[:n], 0)
+        else:
+            ok = self._batch_insert(ent, keys[ent.n : n], ent.n)
+        if not ok:
             ent.bad = True
             return
         ent.n = n
-        ent.jkeys = self._to_dev(ent.tkeys)
-        ent.jentry = self._to_dev(ent.slot_entry.astype(np.int32))
+        if not on_device:
+            ent.jkeys = self._to_dev(ent.tkeys)
+            ent.jentry = self._to_dev(ent.slot_entry.astype(np.int32))
         if ent.jones is None or ent.jones.shape[0] != len(ent.tkeys):
             ent.jones = torch.ones(len(ent.tkeys), dtype=torch.int32, device=self.device)
 
@@ -822,11 +835,33 @@ class TorchBackend:
             pending = pr
         return True
 
+    def _kernel_rebuild(self, ent: "_ProbeTable", keys, cap: int) -> bool:
+        """Full-table rebuild through the batch-insert kernel: the table
+        stays on the device as the probe mirror, with a host copy for
+        later incremental inserts and the slot -> entry map."""
+        tkeys, tentry, ok = hash_build_insert(self._to_dev(keys), cap)
+        if int(ok[0]) == 0:
+            return False
+        ent.jkeys, ent.jentry = tkeys, tentry
+        ent.tkeys = tkeys.to("cpu", copy=True).numpy()
+        ent.slot_entry = tentry.cpu().numpy().astype(np.int64)
+        return True
+
     # -- segmented aggregation ------------------------------------------------
     def segment_sum(self, gids, values, n_groups):
         if n_groups == 0 or len(gids) == 0:
             return np.zeros(n_groups, dtype=np.float64)
-        return self._ref.segment_sum(gids, values, n_groups)
+        if not self.use_agg_kernel or n_groups > self.max_kernel_groups:
+            return self._ref.segment_sum(gids, values, n_groups)
+        vals = (
+            np.ones((len(gids), 1), dtype=np.float32)
+            if values is None
+            else np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1, 1)
+        )
+        out = seg_aggregate(
+            self._to_dev(gids), torch.from_numpy(vals).to(self.device), n_groups
+        )
+        return out.cpu().numpy().astype(np.float64)[:, 0]
 
 
 def resolve_backend(spec, device: str = "cuda") -> ExecutionBackend:

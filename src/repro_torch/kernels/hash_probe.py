@@ -1,4 +1,5 @@
-"""Hash-join probe with a fused per-query state lens (paper §4.3).
+"""Hash-join probe with a fused per-query state lens (paper §4.3), and the
+batch insert that builds the probed table.
 
 Probe a shared open-addressing hash-build state and emit, per probe key,
 the matching table slot — only when the entry is visible to the probing
@@ -9,10 +10,14 @@ the probe. The three entry points port the reference's Pallas kernels
 H100 and what the design does about it):
 
 * ``hash_probe_lens``         — slot-indexed 32-bit lens (``_probe_kernel``);
+* ``hash_probe_lens_multi``   — pre-visibility slot plus the slot's 32-bit
+  word (``_probe_multi_kernel``);
 * ``hash_probe_lens64``       — entry-indexed 64-bit lens
   (``_probe_lens64_kernel``);
 * ``hash_probe_lens_multi64`` — pre-visibility slot plus the matched
-  entry's 64-bit word (``_probe_multi64_kernel``).
+  entry's 64-bit word (``_probe_multi64_kernel``);
+* ``hash_build_insert``       — a fresh table built from a key batch in
+  batch order (``_insert_kernel``).
 
 Every uint32 word (visibility halves, query masks) travels as an int32
 tensor holding the same bits: torch has no full uint32 arithmetic, and
@@ -98,6 +103,48 @@ def hash_probe_lens(probe_keys, table_keys, table_vis, query_mask):
     _build.check(err, name)
     _build.count_launch(name)
     return out
+
+
+# -- B5: pre-visibility slot + the slot's 32-bit word -------------------------
+def hash_probe_lens_multi_plain(probe_keys, table_keys, table_vis):
+    keys = probe_keys.to(torch.int64)
+    cap = table_keys.shape[0]
+    pos = _hash(probe_keys, cap)
+    found = torch.full(keys.shape, -1, dtype=torch.int64, device=keys.device)
+    vis = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    for _ in range(MAX_PROBE):
+        slot_keys = table_keys[pos]
+        hit = (slot_keys == keys) & ~done
+        empty = (slot_keys == EMPTY) & ~done
+        found = torch.where(hit, pos, found)
+        vis = torch.where(hit, table_vis[pos], vis)
+        done = done | hit | empty
+        pos = (pos + 1) & (cap - 1)
+    return found.to(torch.int32), vis
+
+
+def hash_probe_lens_multi(probe_keys, table_keys, table_vis):
+    """Multi-member probe over slot-indexed 32-bit words: per key the
+    matched slot (-1 = no match, pre-visibility) and that slot's packed
+    visibility word (zero on a miss). ``table_vis`` ``[T]`` holds uint32
+    bits as int32. Returns int32 ``[N]`` slots and ``[N]`` words."""
+    name = "hash_probe_lens_multi"
+    _check(name, probe_keys.device, probe_keys, table_keys, table_vis)
+    _check_cap(name, table_keys.shape[0])
+    if probe_keys.device.type == "cpu":
+        return hash_probe_lens_multi_plain(probe_keys, table_keys, table_vis)
+    found = torch.empty_like(probe_keys)
+    vis = torch.empty_like(probe_keys)
+    fn = _build.bind("hash_probe", "hp_probe_multi", 5, 2, 1)
+    err = fn(
+        probe_keys.data_ptr(), table_keys.data_ptr(), table_vis.data_ptr(),
+        found.data_ptr(), vis.data_ptr(), probe_keys.shape[0], table_keys.shape[0],
+        _build.stream_ptr(probe_keys.device),
+    )
+    _build.check(err, name)
+    _build.count_launch(name)
+    return found, vis
 
 
 # -- B2: entry-indexed 64-bit lens, one query ----------------------------------
@@ -196,3 +243,62 @@ def hash_probe_lens_multi64(probe_keys, table_keys, table_entry, evis_lo, evis_h
     _build.check(err, name)
     _build.count_launch(name)
     return found, wlo, whi
+
+
+# -- B6: batch insert into a fresh table ---------------------------------------
+def hash_build_insert_plain(keys, capacity):
+    """The reference's sequential insert, key by key in batch order, on
+    host integers (a loop of small tensor ops would cost microseconds per
+    key). Unlike the kernel it goes on past a failure, as the reference
+    does, so its tables equal the reference's also where ``ok`` is 0."""
+    mask = capacity - 1
+    tk = [EMPTY] * capacity
+    te = [-1] * capacity
+    ok = 1
+    for i, key in enumerate(keys.tolist()):
+        home = ((key & _LO32) * MULT) & mask
+        for h in range(MAX_PROBE):
+            slot = (home + h) & mask
+            cur = tk[slot]
+            if cur == EMPTY:
+                tk[slot] = key
+                te[slot] = i
+                break
+            if cur == key:
+                ok = 0
+                break
+        else:
+            ok = 0
+    dev = keys.device
+    return (
+        torch.tensor(tk, dtype=torch.int32, device=dev),
+        torch.tensor(te, dtype=torch.int32, device=dev),
+        torch.tensor([ok], dtype=torch.int32, device=dev),
+    )
+
+
+def hash_build_insert(keys, capacity):
+    """Build a fresh open-addressing table from ``keys`` (int32 ``[N]``, no
+    EMPTY values) with ``capacity`` slots (a power of two, >= 2N), placing
+    key i at the first EMPTY slot of its probe window in batch order.
+    Returns ``(table_keys, table_entry, ok)``: int32 ``[capacity]`` keys and
+    slot -> batch index, and int32 ``[1]`` ``ok``, 0 when a duplicate key
+    or a window with no EMPTY slot makes the table unservable. The CUDA
+    kernel stops at the first failure, so where ``ok`` is 0 its table is
+    not the plain version's; callers discard such a table."""
+    name = "hash_build_insert"
+    _check(name, keys.device, keys)
+    _check_cap(name, capacity)
+    if keys.device.type == "cpu":
+        return hash_build_insert_plain(keys, capacity)
+    tkeys = torch.empty(capacity, dtype=torch.int32, device=keys.device)
+    tentry = torch.empty(capacity, dtype=torch.int32, device=keys.device)
+    ok = torch.empty(1, dtype=torch.int32, device=keys.device)
+    fn = _build.bind("hash_probe", "hp_build_insert", 4, 2, 1)
+    err = fn(
+        keys.data_ptr(), tkeys.data_ptr(), tentry.data_ptr(), ok.data_ptr(),
+        keys.shape[0], capacity, _build.stream_ptr(keys.device),
+    )
+    _build.check(err, name)
+    _build.count_launch(name)
+    return tkeys, tentry, ok

@@ -1,6 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
-card. The inputs are made with numpy from a seed; outputs are integers, so
-equality is exact.
+card. The inputs are made with numpy from a seed. Probe and insert outputs
+are integers, so equality is exact; the segmented sum fixes the order of
+its float additions, and its plain version repeats that order, so it is
+held bit for bit too.
 
 This file imports neither JAX nor the reference package, so it also runs
 on a machine that has only PyTorch; there, run it without the repository's
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_chain, hash_probe
+from repro_torch.kernels import _build, fused_chain, hash_probe, seg_aggregate
 from repro_torch.kernels.fused_chain import total_order_u32
 from repro_torch.kernels.hash_probe import EMPTY, MULT
 
@@ -175,8 +177,6 @@ def test_cuda_chain_row_counts(cuda, n):
 
 
 def test_cuda_wrappers_count_launches(cuda):
-    from repro_torch.kernels import _build
-
     arrays = _probe_inputs("misses")
     k, tk, tv, te, lo, hi, m = (_t(a, cuda) for a in arrays)
     before = _build.launch_counts().get("hash_probe_lens64", 0)
@@ -185,3 +185,84 @@ def test_cuda_wrappers_count_launches(cuda):
     c = [_t(a) for a in arrays]
     hash_probe.hash_probe_lens64(c[0], c[1], c[3], c[4], c[5], c[6])  # plain: not counted
     assert _build.launch_counts()["hash_probe_lens64"] == before + 1
+
+
+@pytest.mark.parametrize("case", ["misses", "cluster", "zero_vis"])
+def test_cuda_probe_multi_slot32_matches_plain(cuda, case):
+    probe, tk, tv, *_ = _probe_inputs(case)
+    got = hash_probe.hash_probe_lens_multi(_t(probe, cuda), _t(tk, cuda), _t(tv, cuda))
+    want = hash_probe.hash_probe_lens_multi_plain(_t(probe), _t(tk), _t(tv))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int((want[0] >= 0).sum()) > 0
+
+
+def _insert_keys(case, n=3000):
+    rng = np.random.default_rng(7)
+    keys = rng.choice(1 << 24, n, replace=False).astype(np.int32)
+    if case == "duplicate":
+        keys[n // 2] = keys[n // 3]
+    if case == "cluster":
+        extra, k = [], 1 << 25
+        while len(extra) < 20:
+            if (k * MULT) & 0xFFFFFFFF & 8191 == 77:
+                extra.append(k)
+            k += 1
+        keys[100:120] = extra
+    return keys
+
+
+@pytest.mark.parametrize("case", ["unique", "duplicate", "cluster"])
+def test_cuda_build_insert_matches_plain(cuda, case):
+    """Tables equal where ``ok`` is 1 (the kernel stops at its first
+    failure, the plain version goes on); ``ok`` always."""
+    keys = _insert_keys(case)
+    got = hash_probe.hash_build_insert(_t(keys, cuda), 8192)
+    want = hash_probe.hash_build_insert_plain(_t(keys), 8192)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert int(want[2][0]) == (1 if case == "unique" else 0)
+    if int(want[2][0]):
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def _seg_inputs(n, v, g, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-1, g + 1, n).astype(np.int32)
+    vals = (rng.normal(size=(n, v)) * 10.0 ** rng.integers(-4, 5, (n, v))).astype(np.float32)
+    return torch.from_numpy(codes), torch.from_numpy(vals)
+
+
+@pytest.mark.parametrize("n,v,g", [(100, 1, 8), (65_536, 1, 4096), (3000, 8, 64), (0, 1, 8)])
+def test_cuda_seg_aggregate_matches_plain(cuda, n, v, g):
+    codes, vals = _seg_inputs(n, v, g)
+    got = seg_aggregate.seg_aggregate(codes.to(cuda), vals.to(cuda), g)
+    want = seg_aggregate.seg_aggregate_plain(codes, vals, g)
+    assert torch.equal(got.cpu(), want)
+    on_card = seg_aggregate.seg_aggregate_plain(codes.to(cuda), vals.to(cuda), g)
+    assert torch.equal(on_card.cpu(), want)
+
+
+def test_cuda_seg_aggregate_is_deterministic(cuda):
+    codes, vals = _seg_inputs(65_536, 1, 4096, seed=1)
+    codes, vals = codes.to(cuda), vals.to(cuda)
+    a = seg_aggregate.seg_aggregate(codes, vals, 4096)
+    b = seg_aggregate.seg_aggregate(codes, vals, 4096)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_cuda_optin_wrappers_count_launches(cuda):
+    probe, tk, tv, *_ = _probe_inputs("misses")
+    codes, vals = _seg_inputs(1000, 1, 8)
+    calls = {
+        "hash_probe_lens_multi": lambda d: hash_probe.hash_probe_lens_multi(
+            _t(probe, d), _t(tk, d), _t(tv, d)),
+        "hash_build_insert": lambda d: hash_probe.hash_build_insert(_t(probe[:1000], d), 4096),
+        "seg_aggregate": lambda d: seg_aggregate.seg_aggregate(codes.to(d), vals.to(d), 8),
+    }
+    for name, call in calls.items():
+        before = _build.launch_counts().get(name, 0)
+        call(cuda)
+        assert _build.launch_counts()[name] == before + 1
+        call("cpu")  # plain: not counted
+        assert _build.launch_counts()[name] == before + 1

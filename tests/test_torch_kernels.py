@@ -1,9 +1,12 @@
-"""The port's probe and fused-chain kernels against the reference's.
+"""The port's probe, insert, aggregate and fused-chain kernels against the
+reference's.
 
 Every case feeds the same numpy-made inputs to the reference's Pallas
 kernel (interpret mode, as the reference's own tests run it) and to the
 port's wrapper on CPU tensors, which runs the plain PyTorch version.
-Outputs are integers, so equality is exact. The fused chain is checked on
+Probe and insert outputs are integers, so equality is exact; the
+segmented sum accumulates in float32 in the reference, so it is held at
+the reference's own tolerance (rtol/atol 1e-4). The fused chain is checked on
 ``(spec, arrays)`` captured from real reference sessions and on random
 chains whose float operands include NaN, ±inf and -0.0. The CUDA kernels
 themselves are held against these plain versions in ``test_torch_cuda.py``.
@@ -17,9 +20,11 @@ import graftdb
 from graftdb import EngineConfig
 from repro.kernels import fused_chain as ref_chain
 from repro.kernels import hash_probe as ref_hp
+from repro.kernels import ops as ref_ops
+from repro.kernels import seg_aggregate as ref_seg
 from repro.kernels.ops import build_hash_table
 from repro.relational import queries
-from repro_torch.kernels import fused_chain, hash_probe
+from repro_torch.kernels import fused_chain, hash_probe, ops, seg_aggregate
 
 torch.set_num_threads(2)
 
@@ -146,6 +151,23 @@ def test_probe_multi64_matches_reference(case):
     if case == "cluster":
         # the colliding keys past the MAX_PROBE window miss
         assert (want[0] < 0).sum() > 400
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_probe_multi_slot32_matches_reference(case):
+    """B5: pre-visibility slots and the slots' 32-bit words (zero words in
+    ``zero_vis``, high-bit words in ``hi_bits``)."""
+    pk, tk, tv, _, _, _, _, _ = _probe_case(case)
+    want = [np.asarray(a) for a in ref_hp.hash_probe_lens_multi(pk, tk, tv, interpret=True)]
+    got = hash_probe.hash_probe_lens_multi(_t(pk), _t(tk), _t(tv))
+    np.testing.assert_array_equal(_np(got[0]), want[0])
+    np.testing.assert_array_equal(_np(got[1], np.uint32), want[1])
+    assert (want[0] >= 0).any() and (want[0] < 0).any()
+    hit_words = want[1][want[0] >= 0]
+    if case == "zero_vis":
+        assert (hit_words == 0).any()
+    if case == "hi_bits":
+        assert (hit_words >= 1 << 31).any()
 
 
 def test_probe_rejects_mixed_devices_and_dtypes():
@@ -315,3 +337,118 @@ def test_chain_rejects_unpadded_rows():
     arrays = [a[:60] if k == "row" else a for k, a in zip(ref_chain.input_kinds(spec), arrays)]
     with pytest.raises(ValueError):
         fused_chain.chain_launch(spec, [_t(a) for a in arrays])
+
+
+# ---------------------------------------------------------------------------
+# B6: batch insert into a fresh table
+# ---------------------------------------------------------------------------
+
+
+def _insert_case(case, seed=0):
+    """(keys, capacity, expected ok) of one named case; random keys at a
+    given load leave ``ok`` to the reference (None)."""
+    rng = np.random.default_rng(seed)
+    if case == "unique_25":
+        return rng.choice(1 << 24, 1000, replace=False), 4096, None
+    if case == "unique_50":
+        return rng.choice(1 << 24, 1024, replace=False), 2048, None
+    cap = 1024
+    keys = list(rng.choice(1 << 20, 200, replace=False))
+    if case == "home_collisions":
+        # chains on shared and neighbouring home slots, one wrapping past
+        # the end of the table
+        for home, count in ((5, 6), (6, 2), (cap - 2, 4)):
+            keys += _colliding_keys(cap, home, count, (1 << 21) + 1000 * home)
+        rng.shuffle(keys)
+        return np.array(keys), cap, 1
+    if case == "duplicate":
+        keys.insert(200, keys[17])
+        return np.array(keys), cap, 0
+    if case == "cluster":
+        # 24 keys on one home slot: the 17th finds no EMPTY slot in its window
+        keys[100:100] = _colliding_keys(cap, 9, 24, 1 << 21)
+        return np.array(keys), cap, 0
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize(
+    "case", ["unique_25", "unique_50", "home_collisions", "duplicate", "cluster"]
+)
+def test_build_insert_matches_reference(case):
+    keys, cap, ok = _insert_case(case)
+    keys = np.asarray(keys, np.int32)
+    want = [np.asarray(a) for a in ref_hp.hash_build_insert(keys, capacity=cap, interpret=True)]
+    got = hash_probe.hash_build_insert(_t(keys), cap)
+    assert ok is None or int(want[2][0]) == ok
+    for g, w in zip(got, want):  # layout and ok, also where ok is 0
+        np.testing.assert_array_equal(_np(g), w)
+
+
+# ---------------------------------------------------------------------------
+# B7: segmented sum
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,v,g", [(100, 1, 8), (3000, 8, 64), (10000, 4, 200)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_seg_aggregate_matches_reference(n, v, g, dtype):
+    """The reference's sweep (``test_kernels.py``), with pad codes (-1 and
+    >= G) that must match no group."""
+    rng = np.random.default_rng(n + v + g)
+    codes = rng.integers(-1, g + 2, n).astype(np.int32)
+    vals = rng.normal(size=(n, v)).astype(dtype)
+    want = np.asarray(ref_seg.seg_aggregate(codes, vals, g, interpret=True))
+    got = ops.segmented_sum(codes, vals, g, device="cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == (g, v)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_seg_aggregate_plain_fixes_the_kernel_order():
+    """The plain version adds in the CUDA kernel's order: per chunk of
+    ``seg_chunk(V)`` rows in ascending row order into a float64, then the
+    chunk partials in chunk order, one rounding to float32. Held bit for
+    bit against that order written out in Python."""
+    rng = np.random.default_rng(3)
+    n, v, g = 1500, 2, 6
+    codes = rng.integers(-1, g + 1, n).astype(np.int32)
+    vals = (rng.normal(size=(n, v)) * 10.0 ** rng.integers(-6, 7, (n, v))).astype(np.float32)
+    got = seg_aggregate.seg_aggregate(_t(codes), torch.from_numpy(vals), g).numpy()
+    chunk = seg_aggregate.seg_chunk(v)
+    want = np.zeros((g, v), np.float64)
+    for b in range(0, n, chunk):
+        part = np.zeros((g, v), np.float64)
+        for r in range(b, min(n, b + chunk)):
+            if 0 <= codes[r] < g:
+                part[codes[r]] += vals[r].astype(np.float64)
+        want += part
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# kernels/ops.py against the reference's ops.py
+# ---------------------------------------------------------------------------
+
+
+def test_ops_build_and_probe_match_reference():
+    rng = np.random.default_rng(11)
+    keys = rng.choice(1 << 20, 700, replace=False).astype(np.int32)
+    vis = rng.integers(0, 1 << 32, 700, dtype=np.uint64).astype(np.uint32)
+    want = [np.asarray(a) for a in ref_ops.build_hash_table(keys, vis)]
+    got = ops.build_hash_table(keys, vis, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g, w.dtype), w)
+    pk = np.concatenate([keys[::3], (rng.choice(1 << 20, 200) + (1 << 21)).astype(np.int32)])
+    qm = np.uint32(1 << 31)
+    want_p = np.asarray(ref_ops.probe(pk, *want[:2], qm, interpret=True))
+    np.testing.assert_array_equal(_np(ops.probe(pk, *got[:2], qm, device="cpu")), want_p)
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_ops_build_insert_matches_reference(n):
+    """The default capacity (<= 25% load) and the table it gives."""
+    keys = np.random.default_rng(n).choice(1 << 20, n, replace=False).astype(np.int32)
+    want = [np.asarray(a) for a in ref_ops.build_insert(keys, interpret=True)]
+    got = ops.build_insert(keys, device="cpu")
+    assert got[0].shape[0] == want[0].shape[0] >= 4 * n
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), w)

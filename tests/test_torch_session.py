@@ -50,6 +50,12 @@ def _workload(db, seed):
     return qs
 
 
+def _workload_port(tdb, seed):
+    """A fuzz workload sampled from the port's own query module."""
+    rng = np.random.default_rng(seed)
+    return [queries.sample_query(tdb, rng, arrival=0.01 * i) for i in range(3)]
+
+
 def _same_qids(qs):
     """Pin query ids (each package numbers its queries on its own), so
     per-query stats and EXPLAIN renders compare equal."""
@@ -207,9 +213,43 @@ def test_unported_planes_raise(kw):
 
 
 @pytest.mark.parametrize("flag", ["use_agg_kernel", "use_insert_kernel"])
-def test_unported_kernel_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        TorchBackend(device="cpu", **{flag: True})
+def test_kernel_flags_are_accepted(tdb, flag):
+    """The reference's opt-in kernel flags: a session runs with each and
+    its results equal the reference executor's (rtol 1e-5, the float32
+    aggregate kernel's tolerance)."""
+    backend = TorchBackend(device="cpu", **{flag: True})
+    assert getattr(backend, flag) and backend.max_kernel_groups == 4096
+    session = graftdb_torch.connect(
+        tdb, graftdb_torch.EngineConfig(mode="graft", morsel_size=16384, backend=backend)
+    )
+    futs = session.submit_all([
+        queries.make_query(tdb, q.template, q.params, arrival=q.arrival)
+        for q in _workload_port(tdb, 42_003)
+    ])
+    session.run()
+    for f in futs:
+        want = refexec.execute(tdb, f.query.plan)
+        for k, v in f.result().items():
+            np.testing.assert_allclose(
+                np.asarray(v, np.float64), np.asarray(want[k], np.float64), rtol=1e-5
+            )
+
+
+@pytest.mark.parametrize("limit", [4, 4096])
+def test_max_kernel_groups_is_honoured(limit):
+    """Sums over more than ``max_kernel_groups`` groups stay on the exact
+    float64 path; the others round to float32 in the aggregate kernel."""
+    rng = np.random.default_rng(limit)
+    gids = rng.integers(0, 16, 3000)
+    vals = rng.normal(size=3000) / 3.0
+    backend = TorchBackend(device="cpu", use_agg_kernel=True, max_kernel_groups=limit)
+    got = backend.segment_sum(gids, vals, 16)
+    exact = np.bincount(gids, weights=vals, minlength=16)
+    if limit < 16:
+        np.testing.assert_array_equal(got, exact)
+    else:
+        np.testing.assert_array_equal(got, got.astype(np.float32))
+        np.testing.assert_allclose(got, exact, rtol=1e-5)
 
 
 def test_cuda_without_card_raises(tdb):
@@ -225,6 +265,7 @@ import numpy as np
 import torch
 import graftdb_torch
 from graftdb_torch import EngineConfig
+from repro_torch.kernels import ops, seg_aggregate
 from repro_torch.relational import queries, refexec, tpch
 
 db = tpch.get_database(0.002, seed=7)

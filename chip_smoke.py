@@ -30,7 +30,26 @@ itself and drives ``graftdb_torch``. Phases:
    recorded and replayed against its plain version, and timed;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
    versions), in the default and the opt-in configuration, must give
-   identical results, counters, backend stats and virtual clocks.
+   identical results, counters, backend stats and virtual clocks;
+6. kernel-ops path: ``repro_torch.kernels.ops.attention`` at
+   recurrentgemma-9b's local attention (``[16, 4096, 256]``, window
+   2,048, in bf16 and again in float32) and starcoder2-7b's causal
+   attention (``[36, 4096, 128]`` bf16), and ``ops.linear_recurrence`` at
+   recurrentgemma-9b's RG-LRU width (``[2, 4096, 4096]`` float32), inputs
+   from numpy with ``SEED``. Launch counts are reset before these four
+   calls and read after them: ``flash_attention`` and ``linrec`` must have
+   launched. Each output is then held against its kernel's plain version
+   and the independent oracle of ``repro_torch.kernels.ref``, and timed
+   beside them and (attention) ``scaled_dot_product_attention``; so are
+   the ``kernels`` microbench's shapes (``benchmarks/run.py``), whose
+   numbers go to the JSON file only.
+
+Comparisons are exact except for flash attention, which adds its
+products in another order than its plain version and the full-softmax
+oracle: it is held at the reference's own tolerances, |got - want| <=
+10 tol + tol |want| with tol 1e-5 in float32 and 2e-2 in bf16. The linear
+recurrence equals its plain version bit for bit and is held against the
+step-by-step oracle at rtol/atol 1e-4.
 
 Any failure exits non-zero. Before the last line come a JSON object with
 each kernel's launches, error, time, plain time, bound and library time,
@@ -60,10 +79,24 @@ TWIN_SCALE = 0.1
 N_QUERIES = 12
 SEED = 7
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, and the
-#: CUDA-core float32 rate, used as the ALU rate of 32-bit integer work
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the CUDA-core
+#: float32 rate (also used as the ALU rate of 32-bit integer work), and the
+#: bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+
+#: the kernel-ops path: attention calls (label, [BH, S, dh], dtype, window)
+#: at the widths of configurations the reference ships, at its train_4k
+#: sequence length, and the recurrence at recurrentgemma-9b's RG-LRU width
+ATTENTION_CALLS = (
+    ("recurrentgemma-9b bf16", (16, 4096, 256), "bfloat16", 2048),
+    ("recurrentgemma-9b f32", (16, 4096, 256), "float32", 2048),
+    ("starcoder2-7b bf16", (36, 4096, 128), "bfloat16", None),
+)
+LINREC_SHAPE = (2, 4096, 4096)
+#: the reference's own tolerance of flash attention, by dtype
+ATTENTION_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 KERNELS = {
     "fused_chain": ("src/repro_torch/kernels/csrc/fused_chain.cu",
@@ -80,12 +113,16 @@ KERNELS = {
                           "src/repro/kernels/hash_probe.py:317"),
     "seg_aggregate": ("src/repro_torch/kernels/csrc/seg_aggregate.cu",
                       "src/repro/kernels/seg_aggregate.py:21"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:25"),
+    "linrec": ("src/repro_torch/kernels/csrc/linrec.cu", "src/repro/kernels/linrec.py:26"),
 }
 #: kernels each path must launch: the default config's legs, and the
 #: opt-in leg. ``hash_probe_lens_multi`` is on no engine path (the
 #: backend probes through the 64-bit variant); phase 3 checks it.
 MAIN_KERNELS = ("fused_chain", "hash_probe_lens64", "hash_probe_lens_multi64", "hash_probe_lens")
 OPTIN_KERNELS = ("hash_build_insert", "seg_aggregate")
+OPS_KERNELS = ("flash_attention", "linrec")
 OPTIN = dict(use_insert_kernel=True, use_agg_kernel=True)
 
 
@@ -149,9 +186,9 @@ def probe_touch(keys, tkeys):
     return int(torch.unique(torch.cat(seen)).numel()), found, steps
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=ALU_OPS_PER_S):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -198,6 +235,25 @@ def seg_bound(codes, values, n_groups):
     once, and add each value once."""
     n, v = values.shape
     return bound(4 * n + 4 * n * v + 4 * n_groups * v, n * v)
+
+
+def attention_bound(q, window):
+    """Flash attention must read q, k and v and write o once, and do 4 dh
+    flops (two products) per visible (query, key) pair, at the tensor-core
+    rate in bf16 and the CUDA-core rate in float32."""
+    import torch
+
+    bh, s, dh = q.shape
+    t = np.arange(s, dtype=np.int64)
+    pairs = bh * int(np.minimum(t + 1, s if window is None else window).sum())
+    rate = BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16 else ALU_OPS_PER_S
+    return bound(4 * q.numel() * q.element_size(), 4 * dh * pairs, rate)
+
+
+def linrec_bound(a):
+    """The recurrence must read a and b and write h once (float32); it
+    does a product and a sum per element."""
+    return bound(12 * a.numel(), 2 * a.numel())
 
 
 def chain_bound(spec, arrays, flat):
@@ -690,6 +746,8 @@ def smoke(report):
 
     rows = []
     for kname, (src, replaces) in KERNELS.items():
+        if kname in OPS_KERNELS:  # phase 6
+            continue
         if kname in recorder.calls:
             size, kin = recorder.calls[kname]
             rec = compare(kname, kin)
@@ -723,6 +781,155 @@ def smoke(report):
     return rows
 
 
+def within(label, got, want, tol):
+    """Largest absolute difference; fails unless |got - want| <= 10 tol +
+    tol |want| everywhere (the reference's tolerance) and ``got`` is finite
+    and of ``want``'s shape."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {got.dtype} {tuple(g.shape)} != {want.dtype} "
+                             f"{tuple(w.shape)}")
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: non-finite output")
+    diff = (g - w).abs()
+    if bool((diff > 10 * tol + tol * w.abs()).any()):
+        raise AssertionError(f"{label}: off by {float(diff.max())} (tol {tol})")
+    return float(diff.max())
+
+
+def attention_inputs(rng, shape, dtype):
+    import torch
+
+    dev = torch.device("cuda")
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).to(getattr(torch, dtype))
+            for _ in range(3)]
+
+
+def recurrence_inputs(rng, shape, lo=0.7, scale=0.2):
+    import torch
+
+    dev = torch.device("cuda")
+    a = rng.uniform(lo, 0.999, size=shape).astype(np.float32)
+    b = (rng.normal(size=shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def attention_record(q, k, v, window, got):
+    """``got`` (the kernel's output) against the plain version and the
+    full-softmax oracle; times of the kernel, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    tol = ATTENTION_TOL[str(q.dtype).split(".")[1]]
+    rec = {"shape": list(q.shape), "dtype": str(q.dtype), "window": window, "tol": tol}
+    rec["max_abs_err"] = within("flash_attention vs plain", got,
+                                fa.flash_attention_plain(q, k, v, window), tol)
+    rec["max_abs_err_oracle"] = within("flash_attention vs ref", got,
+                                       ref.flash_attention_ref(q, k, v, window=window), tol)
+    rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, window=window), 10)
+    rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, window), 3)
+    # as [1, BH, S, dh]: SDPA's fused kernels take only 4-D inputs
+    q4, k4, v4 = q[None], k[None], v[None]
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+    else:
+        pos = torch.arange(q.shape[1], device=q.device)
+        keep = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)  # noqa: E731
+    rec["library_err"] = float((lib()[0].float() - got.float()).abs().max())
+    rec["library_ms"] = time_ms(lib, 10)
+    rec["bound_ms"], rec["bound_by"] = attention_bound(q, window)
+    return rec
+
+
+def recurrence_record(a, b, got):
+    """``got`` (the kernel's output) equal to the plain version and within
+    1e-4 of the step-by-step oracle; times of the kernel and the plain
+    version (no single PyTorch call computes the recurrence)."""
+    from repro_torch.kernels import linrec as lr
+    from repro_torch.kernels import ref
+
+    rec = {"shape": list(a.shape), "library_ms": None}
+    rec["max_abs_err"] = max_abs_err("linrec", (got,), (lr.linrec_plain(a, b),))
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"linrec: kernel differs from its plain version ({rec['max_abs_err']})")
+    want = ref.linrec_ref(a, b)
+    rec["max_abs_err_oracle"] = float((got - want).abs().max())
+    if not bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()):
+        raise AssertionError(f"linrec: off the oracle by {rec['max_abs_err_oracle']}")
+    rec["ms"] = time_ms(lambda: lr.linrec(a, b), 20)
+    rec["plain_ms"] = time_ms(lambda: lr.linrec_plain(a, b), 3)
+    rec["bound_ms"], rec["bound_by"] = linrec_bound(a)
+    return rec
+
+
+def kernel_ops(report):
+    """Phase 6; returns the rows of ``flash_attention`` and ``linrec``."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' float32 matmuls
+    rng = np.random.default_rng(SEED)
+    calls = [(label, attention_inputs(rng, shape, dtype), window)
+             for label, shape, dtype, window in ATTENTION_CALLS]
+    a, b = recurrence_inputs(rng, LINREC_SHAPE)
+
+    _build.reset_launch_counts()
+    outs = [ops.attention(*qkv, window=window, device="cuda") for _, qkv, window in calls]
+    h = ops.linear_recurrence(a, b, device="cuda")
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    report["launches"]["kernel-ops"] = launches
+    log(f"launches on the kernel-ops path: {launches}")
+    missing = [k for k in OPS_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the kernel-ops path: {missing}")
+
+    recs = {}
+    for (label, (q, k, v), window), got in zip(calls, outs):
+        rec = recs[label] = attention_record(q, k, v, window, got)
+        log(f"kernel-ops attention {label} {rec['shape']} window {window}: within {rec['tol']} "
+            f"of plain ({rec['max_abs_err']:.3g}) and oracle ({rec['max_abs_err_oracle']:.3g}); "
+            f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
+    del calls, outs
+    rec = recs["recurrentgemma-9b RG-LRU"] = recurrence_record(a, b, h)
+    log(f"kernel-ops linear_recurrence {rec['shape']}: equal to plain, within 1e-4 of the oracle "
+        f"({rec['max_abs_err_oracle']:.3g}); {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
+    del a, b, h
+
+    # the kernels microbench's shapes (benchmarks/run.py): q = k = v, causal
+    bench = {}
+    q = attention_inputs(rng, (4, 512, 64), "float32")[:1] * 3
+    bench["flash_attention[4,512,64]"] = attention_record(*q, None, ops.attention(*q, device="cuda"))
+    a, b = recurrence_inputs(rng, (2, 1024, 128), lo=0.9, scale=1.0)
+    bench["linrec[2,1024,128]"] = recurrence_record(a, b, ops.linear_recurrence(a, b, device="cuda"))
+    for label, rec in bench.items():
+        log(f"microbench {label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms)")
+    report["kernel_ops"] = {"calls": recs, "microbench": bench}
+
+    rows = []
+    for kname, label in (("flash_attention", "recurrentgemma-9b bf16"),
+                         ("linrec", "recurrentgemma-9b RG-LRU")):
+        rec = recs[label]
+        src, replaces = KERNELS[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": int(launches.get(kname, 0)), "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "size": rec["shape"],
+        })
+    return rows
+
+
 def main():
     import torch
 
@@ -745,6 +952,7 @@ def main():
     report = {"device": {"name": name, "nvidia_smi": smi}}
 
     rows = smoke(report)
+    rows += kernel_ops(report)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("hash_probe", "fused_chain", "seg_aggregate")
+SOURCES = ("hash_probe", "fused_chain", "seg_aggregate", "flash_attention", "linrec")
 
 LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,12 +1,12 @@
-"""Public wrappers of the engine's kernels, on an explicit device.
+"""Public wrappers of the port's kernels, on an explicit device.
 
-The engine half of the reference's ``src/repro/kernels/ops.py``: the
-hash-table build (on the host, and by the batch-insert kernel), the
-fused-lens probe and the segmented sum. Each takes array-likes, moves
-them to ``device`` (the CUDA card unless the caller asks for the CPU,
-where the kernels' plain versions run) and returns tensors there. The
-reference's ``attention`` and ``linear_recurrence`` are not here yet:
-their kernels (``flash_attention``, ``linrec``) are still to be ported.
+A port of the reference's ``src/repro/kernels/ops.py``: the hash-table
+build (on the host, and by the batch-insert kernel), the fused-lens probe
+and the segmented sum of the engine, and the kernel-ops entry points
+``attention`` (flash attention) and ``linear_recurrence``. Each takes
+array-likes, moves them to ``device`` (the CUDA card unless the caller
+asks for the CPU, where the kernels' plain versions run) and returns
+tensors there.
 """
 
 from __future__ import annotations
@@ -14,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .flash_attention import flash_attention
 from .hash_probe import EMPTY, MULT, hash_build_insert, hash_probe_lens
+from .linrec import linrec
 from .seg_aggregate import seg_aggregate
 
 
@@ -25,6 +27,14 @@ def _i32(a, device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     a = a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32)
     return torch.from_numpy(a).to(device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A contiguous tensor on ``device`` that keeps ``a``'s type."""
+    if not isinstance(a, torch.Tensor):
+        # writable too: torch warns on a read-only array (such as a view of a JAX array)
+        a = torch.from_numpy(np.require(a, requirements="CW"))
+    return a.to(device).contiguous()
 
 
 def build_hash_table(keys, vis, load: float = 0.5, device: str = "cuda"):
@@ -86,3 +96,15 @@ def segmented_sum(codes, values, n_groups, device: str = "cuda"):
     else:
         vals = torch.from_numpy(np.ascontiguousarray(values, dtype=np.float32)).to(device)
     return seg_aggregate(_i32(codes, device), vals, n_groups)
+
+
+def attention(q, k, v, window=None, device: str = "cuda"):
+    """Causal attention over ``[BH, S, dh]`` float32 or bfloat16 inputs,
+    with ``window`` a sliding window; returns ``q``'s type."""
+    return flash_attention(_tensor(q, device), _tensor(k, device), _tensor(v, device),
+                           window=window)
+
+
+def linear_recurrence(a, b, device: str = "cuda"):
+    """``h_t = a_t h_{t-1} + b_t`` over ``[B, S, D]``, as float32."""
+    return linrec(_tensor(a, device), _tensor(b, device))

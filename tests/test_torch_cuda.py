@@ -1,8 +1,11 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card. The inputs are made with numpy from a seed. Probe and insert outputs
-are integers, so equality is exact; the segmented sum fixes the order of
-its float additions, and its plain version repeats that order, so it is
-held bit for bit too.
+are integers, so equality is exact; the segmented sum and the linear
+recurrence fix the order of their float operations, and their plain
+versions repeat that order, so they are held bit for bit too. Flash
+attention adds its products in another order than its plain version, so
+it is held at the reference's tolerances (rtol 1e-5 / atol 1e-4 in
+float32, rtol 2e-2 / atol 2e-1 in bf16).
 
 This file imports neither JAX nor the reference package, so it also runs
 on a machine that has only PyTorch; there, run it without the repository's
@@ -17,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, fused_chain, hash_probe, seg_aggregate
+from repro_torch.kernels import _build, flash_attention, fused_chain, hash_probe, linrec
+from repro_torch.kernels import ref, seg_aggregate
 from repro_torch.kernels.fused_chain import total_order_u32
 from repro_torch.kernels.hash_probe import EMPTY, MULT
 
@@ -266,3 +270,62 @@ def test_cuda_optin_wrappers_count_launches(cuda):
         assert _build.launch_counts()[name] == before + 1
         call("cpu")  # plain: not counted
         assert _build.launch_counts()[name] == before + 1
+
+
+def _attention_inputs(bh, s, dh, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(bh, s, dh)).astype(np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dh", [64, 120, 256])
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain(cuda, dh, window, dtype):
+    q, k, v = _attention_inputs(3, 512, dh, dtype, seed=dh)
+    got = flash_attention.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = ATTN_TOL[dtype]
+    want = flash_attention.flash_attention_plain(q, k, v, window)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=10 * tol)
+    oracle = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.cpu().float(), oracle.float(), rtol=tol, atol=10 * tol)
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 1024, 256), (3, 512, 384)])
+def test_cuda_linrec_matches_plain(cuda, b, s, d):
+    rng = np.random.default_rng(s + d)
+    a = torch.from_numpy(rng.uniform(0.7, 0.999, size=(b, s, d)).astype(np.float32))
+    bb = torch.from_numpy((rng.normal(size=(b, s, d)) * 0.2).astype(np.float32))
+    got = linrec.linrec(a.to(cuda), bb.to(cuda))
+    assert torch.equal(got.cpu(), linrec.linrec_plain(a, bb))
+    on_card = linrec.linrec_plain(a.to(cuda), bb.to(cuda))
+    assert torch.equal(on_card.cpu(), got.cpu())
+
+
+def test_cuda_kernel_ops_wrappers_count_launches(cuda):
+    q, k, v = _attention_inputs(1, 128, 64, torch.float32)
+    a = torch.full((1, 256, 128), 0.9)
+    calls = {
+        "flash_attention": lambda d: flash_attention.flash_attention(
+            q.to(d), k.to(d), v.to(d), window=64),
+        "linrec": lambda d: linrec.linrec(a.to(d), a.to(d)),
+    }
+    for name, call in calls.items():
+        before = _build.launch_counts().get(name, 0)
+        call(cuda)
+        assert _build.launch_counts()[name] == before + 1
+        call("cpu")  # plain: not counted
+        assert _build.launch_counts()[name] == before + 1
+
+
+def test_cuda_flash_attention_refuses_wide_heads(cuda):
+    q = torch.zeros(1, 128, 512, device=cuda)
+    before = _build.launch_counts().get("flash_attention", 0)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention.flash_attention(q, q, q)
+    assert _build.launch_counts().get("flash_attention", 0) == before

@@ -265,7 +265,7 @@ import numpy as np
 import torch
 import graftdb_torch
 from graftdb_torch import EngineConfig
-from repro_torch.kernels import ops, seg_aggregate
+from repro_torch.kernels import flash_attention, linrec, ops, ref, seg_aggregate
 from repro_torch.relational import queries, refexec, tpch
 
 db = tpch.get_database(0.002, seed=7)
@@ -278,6 +278,14 @@ for f in futs:
     for k, v in f.result().items():
         np.testing.assert_allclose(np.asarray(v, float), np.asarray(want[k], float), rtol=1e-9)
 assert session.counters["kernel_chain_launches"] > 0
+q = rng.normal(size=(2, 128, 32)).astype(np.float32)
+out = ops.attention(q, q, q, window=64, device="cpu")
+torch.testing.assert_close(out, ref.flash_attention_ref(*[torch.from_numpy(q)] * 3, window=64),
+                           rtol=1e-5, atol=1e-4)
+a = rng.uniform(0.7, 0.999, size=(1, 256, 128)).astype(np.float32)
+h = ops.linear_recurrence(a, a, device="cpu")
+torch.testing.assert_close(h, ref.linrec_ref(torch.from_numpy(a), torch.from_numpy(a)),
+                           rtol=1e-4, atol=1e-4)
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")

@@ -33,10 +33,10 @@ itself and drives ``graftdb_torch``. Phases:
    identical results, counters, backend stats and virtual clocks;
 6. kernel-ops path: ``repro_torch.kernels.ops.attention`` at
    recurrentgemma-9b's local attention (``[16, 4096, 256]``, window
-   2,048, in bf16 and again in float32) and starcoder2-7b's causal
-   attention (``[36, 4096, 128]`` bf16), and ``ops.linear_recurrence`` at
+   2,048) and starcoder2-7b's causal attention (``[36, 4096, 128]``),
+   each in bf16 and again in float32, and ``ops.linear_recurrence`` at
    recurrentgemma-9b's RG-LRU width (``[2, 4096, 4096]`` float32), inputs
-   from numpy with ``SEED``. Launch counts are reset before these four
+   from numpy with ``SEED``. Launch counts are reset before these five
    calls and read after them: ``flash_attention`` and ``linrec`` must have
    launched. Each output is then held against its kernel's plain version
    and the independent oracle of ``repro_torch.kernels.ref``, and timed
@@ -46,9 +46,16 @@ itself and drives ``graftdb_torch``. Phases:
 
 Comparisons are exact except for flash attention, which adds its
 products in another order than its plain version and the full-softmax
-oracle: it is held at the reference's own tolerances, |got - want| <=
-10 tol + tol |want| with tol 1e-5 in float32 and 2e-2 in bf16. The linear
-recurrence equals its plain version bit for bit and is held against the
+oracle and, in bf16, rounds other values of ``p``. Every element must
+lie within atol + rtol |want| + row_atol rms(want's row) of its plain
+version and of the oracle, the row being the output vector of one query:
+in float32 the reference's own tolerance (rtol 1e-5, atol 1e-4); in bf16
+rtol 2e-2 and row_atol 0.1, no fixed atol. The outputs, and the errors
+of rounding ``p``, shrink as a row sees more keys, so the bf16 limit
+follows the row: the reference's atol of 0.2 passes an output that
+leaves out a 64-key tile of the rows that see 512 keys or more
+(``tests/test_torch_kernel_ops.py``). The linear recurrence
+equals its plain version bit for bit and is held against the
 step-by-step oracle at rtol/atol 1e-4.
 
 Any failure exits non-zero. Before the last line come a JSON object with
@@ -93,10 +100,16 @@ ATTENTION_CALLS = (
     ("recurrentgemma-9b bf16", (16, 4096, 256), "bfloat16", 2048),
     ("recurrentgemma-9b f32", (16, 4096, 256), "float32", 2048),
     ("starcoder2-7b bf16", (36, 4096, 128), "bfloat16", None),
+    ("starcoder2-7b f32", (36, 4096, 128), "float32", None),
 )
 LINREC_SHAPE = (2, 4096, 4096)
-#: the reference's own tolerance of flash attention, by dtype
-ATTENTION_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: flash attention's limits (``within``) by dtype: the reference's own in
+#: float32; in bf16 its rtol, with a term that follows each row's RMS in
+#: place of its atol of 0.2
+ATTENTION_TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
+                 "bfloat16": dict(rtol=2e-2, row_atol=0.1)}
+#: the reference's tolerance of the recurrence against its oracle
+LINREC_TOL = dict(rtol=1e-4, atol=1e-4)
 
 KERNELS = {
     "fused_chain": ("src/repro_torch/kernels/csrc/fused_chain.cu",
@@ -781,10 +794,11 @@ def smoke(report):
     return rows
 
 
-def within(label, got, want, tol):
-    """Largest absolute difference; fails unless |got - want| <= 10 tol +
-    tol |want| everywhere (the reference's tolerance) and ``got`` is finite
-    and of ``want``'s shape."""
+def within(label, got, want, rtol, atol=0.0, row_atol=0.0):
+    """``got`` finite, of ``want``'s shape and type, and |got - want| <=
+    atol + rtol |want| + row_atol rms(want's row) everywhere (a row is the
+    last axis). Returns the largest absolute difference and the largest
+    share of its limit that any element takes."""
     import torch
 
     g, w = got.float(), want.float()
@@ -794,9 +808,12 @@ def within(label, got, want, tol):
     if not torch.isfinite(g).all():
         raise AssertionError(f"{label}: non-finite output")
     diff = (g - w).abs()
-    if bool((diff > 10 * tol + tol * w.abs()).any()):
-        raise AssertionError(f"{label}: off by {float(diff.max())} (tol {tol})")
-    return float(diff.max())
+    limit = atol + rtol * w.abs() + row_atol * w.square().mean(-1, keepdim=True).sqrt()
+    if bool((diff > limit).any()):
+        raise AssertionError(f"{label}: off by {float(diff.max())} "
+                             f"(rtol {rtol}, atol {atol}, row_atol {row_atol})")
+    share = torch.where(diff > 0, diff / limit, 0.0)
+    return float(diff.max()), float(share.max())
 
 
 def attention_inputs(rng, shape, dtype):
@@ -827,10 +844,10 @@ def attention_record(q, k, v, window, got):
 
     tol = ATTENTION_TOL[str(q.dtype).split(".")[1]]
     rec = {"shape": list(q.shape), "dtype": str(q.dtype), "window": window, "tol": tol}
-    rec["max_abs_err"] = within("flash_attention vs plain", got,
-                                fa.flash_attention_plain(q, k, v, window), tol)
-    rec["max_abs_err_oracle"] = within("flash_attention vs ref", got,
-                                       ref.flash_attention_ref(q, k, v, window=window), tol)
+    rec["max_abs_err"], rec["limit_share"] = within(
+        "flash_attention vs plain", got, fa.flash_attention_plain(q, k, v, window), **tol)
+    rec["max_abs_err_oracle"], rec["limit_share_oracle"] = within(
+        "flash_attention vs ref", got, ref.flash_attention_ref(q, k, v, window=window), **tol)
     rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, window=window), 10)
     rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, window), 3)
     # as [1, BH, S, dh]: SDPA's fused kernels take only 4-D inputs
@@ -841,7 +858,6 @@ def attention_record(q, k, v, window, got):
         pos = torch.arange(q.shape[1], device=q.device)
         keep = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)  # noqa: E731
-    rec["library_err"] = float((lib()[0].float() - got.float()).abs().max())
     rec["library_ms"] = time_ms(lib, 10)
     rec["bound_ms"], rec["bound_by"] = attention_bound(q, window)
     return rec
@@ -858,10 +874,8 @@ def recurrence_record(a, b, got):
     rec["max_abs_err"] = max_abs_err("linrec", (got,), (lr.linrec_plain(a, b),))
     if rec["max_abs_err"] != 0:
         raise AssertionError(f"linrec: kernel differs from its plain version ({rec['max_abs_err']})")
-    want = ref.linrec_ref(a, b)
-    rec["max_abs_err_oracle"] = float((got - want).abs().max())
-    if not bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()):
-        raise AssertionError(f"linrec: off the oracle by {rec['max_abs_err_oracle']}")
+    rec["max_abs_err_oracle"], rec["limit_share_oracle"] = within(
+        "linrec vs ref", got, ref.linrec_ref(a, b), **LINREC_TOL)
     rec["ms"] = time_ms(lambda: lr.linrec(a, b), 20)
     rec["plain_ms"] = time_ms(lambda: lr.linrec_plain(a, b), 3)
     rec["bound_ms"], rec["bound_by"] = linrec_bound(a)
@@ -895,7 +909,8 @@ def kernel_ops(report):
     for (label, (q, k, v), window), got in zip(calls, outs):
         rec = recs[label] = attention_record(q, k, v, window, got)
         log(f"kernel-ops attention {label} {rec['shape']} window {window}: within {rec['tol']} "
-            f"of plain ({rec['max_abs_err']:.3g}) and oracle ({rec['max_abs_err_oracle']:.3g}); "
+            f"of plain ({rec['max_abs_err']:.3g}, {rec['limit_share']:.3g} of the limit) and "
+            f"oracle ({rec['max_abs_err_oracle']:.3g}, {rec['limit_share_oracle']:.3g}); "
             f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
     del calls, outs

@@ -4,8 +4,10 @@ are integers, so equality is exact; the segmented sum and the linear
 recurrence fix the order of their float operations, and their plain
 versions repeat that order, so they are held bit for bit too. Flash
 attention adds its products in another order than its plain version, so
-it is held at the reference's tolerances (rtol 1e-5 / atol 1e-4 in
-float32, rtol 2e-2 / atol 2e-1 in bf16).
+it is held within limits: rtol 1e-5 / atol 1e-4 in float32 (the
+reference's), and in bf16 2e-2 |want| + 0.1 rms(want's row), the row
+being one query's output vector (the reference's atol of 0.2 would pass
+an output that left out a 64-key tile).
 
 This file imports neither JAX nor the reference package, so it also runs
 on a machine that has only PyTorch; there, run it without the repository's
@@ -278,7 +280,18 @@ def _attention_inputs(bh, s, dh, dtype, seed=0):
             for _ in range(3)]
 
 
-ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+def _assert_attention_close(got, want):
+    """float32: rtol 1e-5 / atol 1e-4; bf16: |got - want| <= 2e-2 |want| +
+    0.1 rms(want's row) everywhere."""
+    assert got.dtype == want.dtype
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.cpu().float(), want.cpu().float()
+    if not bf16:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        return
+    diff = (got - want).abs()
+    limit = 2e-2 * want.abs() + 0.1 * want.square().mean(-1, keepdim=True).sqrt()
+    assert bool((diff <= limit).all()), f"off by {float(diff.max())}"
 
 
 @pytest.mark.parametrize("dh", [64, 120, 256])
@@ -289,11 +302,8 @@ def test_cuda_flash_attention_matches_plain(cuda, dh, window, dtype):
     got = flash_attention.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    tol = ATTN_TOL[dtype]
-    want = flash_attention.flash_attention_plain(q, k, v, window)
-    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol, atol=10 * tol)
-    oracle = ref.flash_attention_ref(q, k, v, window=window)
-    torch.testing.assert_close(got.cpu().float(), oracle.float(), rtol=tol, atol=10 * tol)
+    _assert_attention_close(got, flash_attention.flash_attention_plain(q, k, v, window))
+    _assert_attention_close(got, ref.flash_attention_ref(q, k, v, window=window))
 
 
 @pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 1024, 256), (3, 512, 384)])

@@ -12,10 +12,14 @@ itself and drives ``graftdb_torch``. Phases:
 3. kernels at SF-1 shapes: each kernel against its plain PyTorch version
    on the card (N = 65,536 probe keys into the orders-state table:
    1.5 M entries, 2^22 slots; the batch insert of the 1.5 M order keys
-   into 2^22 slots, its plain version on host copies; the segmented sum
-   of 65,536 rows into 8 and 4,096 groups). Probe and insert outputs are
-   integers and the segmented sum fixes its order of additions, which
-   its plain version repeats, so every comparison is exact;
+   into 2^22 slots, its plain version on host copies, and three more
+   inserts: 2^19 keys into 2^20 slots with clusters that wrap round the
+   table's end, a window overflow (17 keys on one home) and a duplicate
+   key; the segmented sum of 65,536 rows into 8 and 4,096 groups). Probe
+   and insert outputs are integers (an insert's tables are compared where
+   ``ok`` is 1, ``ok`` always) and the segmented sum fixes its order of
+   additions, which its plain version repeats, so every comparison is
+   exact;
 4. main path: ``graftdb_torch.connect`` at TPC-H SF 1 with the default
    config (torch backend on the card, 65,536-row morsels), 12 sampled
    queries with staggered arrivals, in graft mode, isolated mode, and
@@ -42,7 +46,11 @@ itself and drives ``graftdb_torch``. Phases:
    and the independent oracle of ``repro_torch.kernels.ref``, and timed
    beside them and (attention) ``scaled_dot_product_attention``; so are
    the ``kernels`` microbench's shapes (``benchmarks/run.py``), whose
-   numbers go to the JSON file only.
+   numbers go to the JSON file only. Each attention call also records its
+   TFLOP/s over the whole 64 x 64 tiles the kernel computes and its share
+   of the bound; the phase records the ptxas register and spill lines of
+   each attention kernel instance and the tensor-core instructions
+   (``HGMMA``, ``HMMA``) and TMA loads in the library's SASS.
 
 Comparisons are exact except for flash attention, which adds its
 products in another order than its plain version and the full-softmax
@@ -232,7 +240,7 @@ def probe_bound(name, args):
 def insert_bound(keys, cap, tkeys):
     """A batch insert must read each key once and write both tables and
     ``ok`` once; it hashes each key and compares once per probe step of
-    its placement (counted from the table it built)."""
+    its placement (counted from ``tkeys``, the sequential table)."""
     import torch
 
     from repro_torch.kernels.hash_probe import EMPTY, _hash
@@ -248,6 +256,17 @@ def seg_bound(codes, values, n_groups):
     once, and add each value once."""
     n, v = values.shape
     return bound(4 * n + 4 * n * v + 4 * n_groups * v, n * v)
+
+
+def attention_tile_flops(q, window):
+    """Flops of the whole 64 x 64 tiles a kernel computes: per 64-query
+    block, every 64-key tile from the window's first to the diagonal."""
+    bh, s, dh = q.shape
+    tiles = 0
+    for r0 in range(0, s, 64):
+        lo = 0 if window is None else max(0, r0 - window + 1) // 64
+        tiles += r0 // 64 - lo + 1
+    return 4 * dh * 64 * 64 * tiles * bh
 
 
 def attention_bound(q, window):
@@ -426,8 +445,33 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
         "fused_chain": ("fused_chain", simple),
         "fused_chain_rich": ("fused_chain", rich),
         "hash_build_insert": ("hash_build_insert", (t(keys.astype(np.int32)), len(tkeys))),
+        **insert_inputs(keys, len(tkeys), rng, t),
         "seg_aggregate_g8": ("seg_aggregate", (codes[8], vals, 8)),
         "seg_aggregate_g4096": ("seg_aggregate", (codes[4096], vals, 4096)),
+    }
+
+
+def insert_inputs(order_keys, cap, rng, t):
+    """Batch inserts beyond the SF-1 replay: 2^19 keys of distinct homes
+    into 2^20 slots (load 0.5) with clusters of six keys on each of the
+    last and the first slot, so they wrap round the end (``ok`` 1); 17 keys
+    on one home among 2^16 in 2^18 slots, a certain window overflow; and
+    the SF's order keys with one duplicate (``ok`` 0 for both)."""
+    from repro_torch.kernels.hash_probe import keys_at
+
+    big = 1 << 20
+    homes = np.concatenate([[big - 1] * 6, [0] * 6, 8 + rng.choice(big - 16, big // 2 - 12,
+                                                                  replace=False)])
+    small = 1 << 18
+    over = np.concatenate([[77] * 17, 100 + rng.choice(small - 200, (1 << 16) - 17, replace=False)])
+    dup = order_keys.astype(np.int32).copy()
+    dup[len(dup) // 2] = dup[7]
+    return {
+        "hash_build_insert_wrap": ("hash_build_insert",
+                                   (t(keys_at(homes, big, rng.integers(big))), big)),
+        "hash_build_insert_overflow": ("hash_build_insert",
+                                       (t(keys_at(over, small, rng.integers(small))), small)),
+        "hash_build_insert_duplicate": ("hash_build_insert", (t(dup), cap)),
     }
 
 
@@ -493,11 +537,12 @@ def compare(name, args, timed=True, iters=20):
     rec = {"max_abs_err": err, "library_ms": None}
     if not timed:
         return rec
-    if name == "hash_build_insert":  # sequential: ~0.1-1 s a call on the card
-        rec["ms"] = time_ms(lambda: kern(*args), 3)
+    if name == "hash_build_insert":
+        rec["ok"] = int(want[2][0])
+        rec["ms"] = time_ms(lambda: kern(*args), iters)
         rec["plain_ms"] = host_ms(lambda: plain(*args))
         rec["plain_on"] = "host"
-        rec["bound_ms"], rec["bound_by"] = insert_bound(args[0], args[1], got[0])
+        rec["bound_ms"], rec["bound_by"] = insert_bound(args[0], args[1], want[0])
         return rec
     rec["ms"] = time_ms(lambda: kern(*args), iters)
     rec["plain_ms"] = time_ms(lambda: plain(*args), max(2, iters // 4))
@@ -721,7 +766,8 @@ def smoke(report):
         rec = compare(kname, kin)
         synth[label] = rec
         lib = "" if rec["library_ms"] is None else f", index_add_ {rec['library_ms']:.4f} ms"
-        log(f"kernel {label}: equal to plain; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+        ok = f" (ok {rec['ok']})" if "ok" in rec else ""
+        log(f"kernel {label}: equal to plain{ok}; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}{lib})")
     a, b = (kernel_pair("seg_aggregate")[0](*inputs["seg_aggregate_g4096"][1]) for _ in range(2))
     if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
@@ -860,6 +906,9 @@ def attention_record(q, k, v, window, got):
         lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)  # noqa: E731
     rec["library_ms"] = time_ms(lib, 10)
     rec["bound_ms"], rec["bound_by"] = attention_bound(q, window)
+    rec["tile_flops"] = attention_tile_flops(q, window)
+    rec["tflops"] = rec["tile_flops"] / rec["ms"] / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
@@ -880,6 +929,34 @@ def recurrence_record(a, b, got):
     rec["plain_ms"] = time_ms(lambda: lr.linrec_plain(a, b), 3)
     rec["bound_ms"], rec["bound_by"] = linrec_bound(a)
     return rec
+
+
+def attention_build_record():
+    """The ptxas register and spill lines of each attention kernel instance,
+    and the tensor-core instructions and TMA loads in the library's SASS
+    (``cuobjdump``): ``HGMMA`` is wgmma, ``HMMA`` mma.sync."""
+    from repro_torch.kernels import _build
+
+    instances, name = {}, None
+    for line in _build.BUILD_LOG.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            instances.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    sass_lines = sass.splitlines()
+    counts = {op: sum(f" {op}" in ln for ln in sass_lines) for op in ("HGMMA", "HMMA", "UTMALDG")}
+    if not any("fa_tc_kernel" in inst for inst in instances):
+        raise AssertionError("flash_attention: no ptxas report of the tensor-core kernel")
+    for inst, report in instances.items():
+        log(f"  ptxas flash_attention {inst}: {' / '.join(report)}")
+    if counts["HGMMA"] == 0:
+        raise AssertionError("flash_attention: no wgmma (HGMMA) in the library's SASS")
+    variant = "wgmma + TMA" if counts["UTMALDG"] else "wgmma"
+    log(f"  flash_attention SASS: {counts}: bf16 on {variant}")
+    return {"ptxas": instances, "sass": counts, "bf16_variant": variant}
 
 
 def kernel_ops(report):
@@ -912,7 +989,8 @@ def kernel_ops(report):
             f"of plain ({rec['max_abs_err']:.3g}, {rec['limit_share']:.3g} of the limit) and "
             f"oracle ({rec['max_abs_err_oracle']:.3g}, {rec['limit_share_oracle']:.3g}); "
             f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}); {rec['tflops']:.1f} TFLOP/s over "
+            f"whole tiles, {rec['bound_share']:.3f} of the bound")
     del calls, outs
     rec = recs["recurrentgemma-9b RG-LRU"] = recurrence_record(a, b, h)
     log(f"kernel-ops linear_recurrence {rec['shape']}: equal to plain, within 1e-4 of the oracle "
@@ -929,7 +1007,8 @@ def kernel_ops(report):
     for label, rec in bench.items():
         log(f"microbench {label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.6f} ms)")
-    report["kernel_ops"] = {"calls": recs, "microbench": bench}
+    report["kernel_ops"] = {"calls": recs, "microbench": bench,
+                            "flash_attention_build": attention_build_record()}
 
     rows = []
     for kname, label in (("flash_attention", "recurrentgemma-9b bf16"),

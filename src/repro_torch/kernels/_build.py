@@ -37,7 +37,8 @@ SOURCES = ("hash_probe", "fused_chain", "seg_aggregate", "flash_attention", "lin
 
 LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: ptxas register / shared-memory report of each source's last build
+#: ptxas register / shared-memory report of each source's last build (kept
+#: beside its library, so a process that finds the library built reads it)
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -77,7 +78,14 @@ def build(stems: Iterable[str] = SOURCES) -> float:
     """Compile every missing library, one ``nvcc`` per source, all started
     together. Returns the wall seconds spent; raises on any failure."""
     t0 = time.perf_counter()
-    todo = [(s, _lib_path(s)) for s in stems if not _lib_path(s).exists()]
+    todo = []
+    for stem in stems:
+        lib = _lib_path(stem)
+        if lib.exists():
+            log = lib.with_suffix(".log")
+            BUILD_LOG.setdefault(stem, log.read_text() if log.exists() else "")
+        else:
+            todo.append((stem, lib))
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -98,6 +106,7 @@ def build(stems: Iterable[str] = SOURCES) -> float:
         if p.returncode != 0:
             failed.append(f"{stem}.cu (nvcc exit {p.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -115,9 +124,11 @@ def load(stem: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(stem: str, fn: str, n_ptr: int, n_int: int, trailing_ptr: int = 0):
+def bind(stem: str, fn: str, n_ptr: int, n_int: int, trailing_ptr: int = 0,
+         restype: str = "int"):
     """A C entry point with ``n_ptr`` pointer arguments, then ``n_int``
-    int arguments, then ``trailing_ptr`` pointers (the stream last).
+    int arguments, then ``trailing_ptr`` pointers (the stream last),
+    returning an ``int`` (a CUDA error code) or a ``longlong``.
     Pointers must be declared ``c_void_p``: ctypes would otherwise pass
     each as a 32-bit int and cut it."""
     f = getattr(load(stem), fn)
@@ -126,7 +137,7 @@ def bind(stem: str, fn: str, n_ptr: int, n_int: int, trailing_ptr: int = 0):
         + [ctypes.c_longlong] * n_int
         + [ctypes.c_void_p] * trailing_ptr
     )
-    f.restype = ctypes.c_int
+    f.restype = {"int": ctypes.c_int, "longlong": ctypes.c_longlong}[restype]
     return f
 
 

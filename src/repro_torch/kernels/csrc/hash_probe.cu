@@ -23,18 +23,50 @@
 // job. Each entry point launches on the caller's stream and returns
 // cudaGetLastError().
 //
-// The batch insert is different: it is bound by latency, not bytes. The
-// reference places the keys one after another in batch order (key i takes
-// the first EMPTY slot of its MAX_PROBE-slot window; meeting its own key
-// first, or no EMPTY slot, clears ok), and the table it builds depends on
-// that order. A parallel insert (CAS or winner election) builds another
-// layout and, on borderline clusters, another ok, which would change which
-// states the engine serves. So one warp walks the keys in order: lanes
-// 0..15 read the key's window in one coalesced load, a ballot finds the
-// first EMPTY or equal slot, one lane stores, and __syncwarp() orders that
-// store before the next key's load. Each key costs about one dependent L2
-// round trip; the kernel stops at the first failure, since a table with
-// ok == 0 is discarded.
+// The batch insert builds the table the reference builds key by key in
+// batch order (key i takes the first EMPTY slot of its MAX_PROBE-slot
+// window; meeting its own key first, or no EMPTY slot, clears ok), and the
+// engine needs that very table. A parallel insert by CAS or by winner
+// election builds another one. This kernel builds the same table as a
+// parallel sweep over the slots instead. Linear probing that serves keys
+// first come, first served has this property: walk the slots in probe
+// order from just after a slot that ends up empty; at each slot put into a
+// pool the keys whose home is that slot, place the pool's key with the
+// lowest batch index there and take it out of the pool. Proof sketch, by
+// induction over the slots: let x be the lowest-index key in the pool at
+// slot s. Every slot from home(x) to s - 1 took a key of lower index than
+// x, so those slots were full when x arrived; a key z that the sequential
+// insert put at s with a lower index than x would be in the pool and beat
+// x. The sweep also gives the same ok: the first failing key in batch
+// order sees the same table in both; a window overflow is a placement at
+// distance >= MAX_PROBE from home (certain once a pool would hold more than
+// MAX_PROBE keys); equal keys share a home, so a duplicate is two equal
+// keys of one home bucket. So the table cuts into independent segments at
+// the slots that end up empty, and each segment is swept by its own thread.
+//
+// The number of keys waiting to enter slot s after slot s - 1 follows
+// o_s = max(0, o_{s-1} + count_s - 1), count_s the keys whose home is s, and
+// slot s ends up empty iff o_{s-1} + count_s == 0. These maps x -> max(a,
+// x + b) compose, so the o's come from a chunked scan (the three-pass shape
+// of linrec.cu): per-tile compositions, the carry across tiles, then per
+// thread its slots' state. The table is circular; since n < cap, the whole
+// round's composition max(A, x + B) has B = n - cap < 0, and its fixed
+// point A is the true carry into slot 0. Passes, one C entry point:
+//   0. ins_fill_kernel: tkeys = EMPTY, tentry = -1, counts 0, buckets empty;
+//   1. ins_link_kernel: per key count[home] += 1 and a push onto its home's
+//      bucket list (integer atomics; order inside a bucket does not matter);
+//   2. ins_tile_kernel: each 4,096-slot tile's composition;
+//   3. ins_carry_kernel: one block, the carry into every tile;
+//   4. ins_sweep_kernel: per 4 slots (a thread) the first that ends up
+//      empty; from just after it the thread sweeps to the first empty slot
+//      at or after the next thread's first slot, so the segments cover the
+//      circle once. n == cap leaves no slot empty: that case alone runs the
+//      one-warp sequential insert (ins_seq_kernel), which stops at the first
+//      failure. n > cap cannot succeed: ok = 0 at once.
+// What bounds it: bytes, 4 n for the keys and 8 cap for the two tables, plus
+// the scratch (counts and bucket heads, 8 cap, read back twice; bucket links,
+// 4 n) that the sweep moves through L2. Where ok is 0 a thread stops at its
+// failure, so the table is not the plain version's; callers discard it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,19 +199,178 @@ __global__ void probe_multi64_kernel(const int* __restrict__ keys, long long n,
     out_hi[i] = hi;
 }
 
-__global__ void insert_fill_kernel(int* __restrict__ tkeys, int* __restrict__ tentry,
-                                   long long cap) {
+// -- B6: batch insert as a parallel sweep ------------------------------------
+
+#define INS_TILE 4096  // slots of one block of passes 2 and 4
+#define INS_SPT 4      // slots of one thread: where its segment may start
+
+// x -> max(a, x + b) over x >= 0, so (0, 0) is the identity
+struct MaxPlus {
+    int a, b;
+};
+
+// f, then g
+__device__ __forceinline__ MaxPlus mp_then(MaxPlus f, MaxPlus g) {
+    return {max(g.a, f.a + g.b), f.b + g.b};
+}
+
+__device__ __forceinline__ int mp_apply(MaxPlus f, int x) { return max(f.a, x + f.b); }
+
+// slots [first, first + spt): keys waiting before them -> keys waiting after
+__device__ __forceinline__ MaxPlus slots_map(const int* __restrict__ count, long long first,
+                                             int spt) {
+    MaxPlus f = {0, 0};
+    for (int j = 0; j < spt; ++j) f = mp_then(f, {0, count[first + j] - 1});
+    return f;
+}
+
+// exclusive scan of the block's maps in thread order; *total gets them all
+__device__ MaxPlus block_scan(MaxPlus f, MaxPlus* sh, MaxPlus* total) {
+    const int t = threadIdx.x, nt = blockDim.x;
+    sh[t] = f;
+    __syncthreads();
+    for (int off = 1; off < nt; off <<= 1) {
+        const MaxPlus mine = sh[t];
+        const MaxPlus before = t >= off ? sh[t - off] : MaxPlus{0, 0};
+        __syncthreads();
+        sh[t] = mp_then(before, mine);
+        __syncthreads();
+    }
+    const MaxPlus excl = t > 0 ? sh[t - 1] : MaxPlus{0, 0};
+    *total = sh[nt - 1];
+    return excl;
+}
+
+// pass 0: a fresh table, zero counts, empty buckets
+__global__ void ins_fill_kernel(int* __restrict__ tkeys, int* __restrict__ tentry,
+                                int* __restrict__ count, int* __restrict__ head, long long cap,
+                                int* __restrict__ ok, int ok0) {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < cap;
          i += (long long)gridDim.x * blockDim.x) {
         tkeys[i] = EMPTY_KEY;
         tentry[i] = -1;
+        count[i] = 0;
+        head[i] = -1;
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) ok[0] = ok0;
+}
+
+// pass 1: per key, its home's count and a push onto its home's bucket list.
+// A key equal to EMPTY cannot be told from an empty slot: ok = 0.
+__global__ void ins_link_kernel(const int* __restrict__ keys, int n, int* __restrict__ count,
+                                int* __restrict__ head, int* __restrict__ next, uint32_t mask,
+                                int* __restrict__ ok) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int key = keys[i];
+    if (key == EMPTY_KEY) ok[0] = 0;
+    const uint32_t h = home_slot(key, mask);
+    atomicAdd(&count[h], 1);
+    next[i] = atomicExch(&head[h], i);
+}
+
+// pass 2: each tile's composition
+__global__ void ins_tile_kernel(const int* __restrict__ count, int spt,
+                                MaxPlus* __restrict__ tile_map) {
+    extern __shared__ MaxPlus sh[];
+    const long long first = (long long)blockIdx.x * blockDim.x * spt + (long long)threadIdx.x * spt;
+    MaxPlus total;
+    block_scan(slots_map(count, first, spt), sh, &total);
+    if (threadIdx.x == 0) tile_map[blockIdx.x] = total;
+}
+
+// pass 3, one block: the keys waiting to enter each tile. Thread t owns the
+// tiles [t * per, (t + 1) * per).
+__global__ void ins_carry_kernel(const MaxPlus* __restrict__ tile_map, int n_tiles,
+                                 int* __restrict__ carry) {
+    extern __shared__ MaxPlus sh[];
+    const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
+    const int lo = min(n_tiles, (int)threadIdx.x * per), hi = min(n_tiles, lo + per);
+    MaxPlus f = {0, 0};
+    for (int i = lo; i < hi; ++i) f = mp_then(f, tile_map[i]);
+    MaxPlus total;
+    const MaxPlus excl = block_scan(f, sh, &total);
+    // n < cap, so total.b < 0 and the round's fixed point is total.a
+    int x = mp_apply(excl, total.a);
+    for (int i = lo; i < hi; ++i) {
+        carry[i] = x;
+        x = mp_apply(tile_map[i], x);
     }
 }
 
-// One warp. tkeys is read and written by different lanes, so it is neither
-// const nor __restrict__: every window load must see the stores before it.
-__global__ void insert_kernel(const int* __restrict__ keys, long long n, int* tkeys,
-                              int* tentry, long long cap, int* __restrict__ ok) {
+// pass 4: each thread finds the first of its slots that ends up empty and
+// sweeps the segment after it (see the note at the top)
+__global__ void ins_sweep_kernel(const int* __restrict__ keys, const int* __restrict__ count,
+                                 const int* __restrict__ head, const int* __restrict__ next,
+                                 const int* __restrict__ carry, int spt, uint32_t mask,
+                                 int* __restrict__ tkeys, int* __restrict__ tentry,
+                                 int* __restrict__ ok) {
+    extern __shared__ MaxPlus sh[];
+    const long long first = (long long)blockIdx.x * blockDim.x * spt + (long long)threadIdx.x * spt;
+    MaxPlus total;
+    const MaxPlus excl = block_scan(slots_map(count, first, spt), sh, &total);
+    int waiting = mp_apply(excl, carry[blockIdx.x]);
+    long long empty = -1;
+    for (int j = 0; j < spt; ++j) {
+        const int c = count[first + j];
+        if (waiting + c == 0) {
+            empty = first + j;
+            break;
+        }
+        waiting = max(0, waiting + c - 1);
+    }
+    if (empty < 0) return;  // no segment starts among these slots
+
+    // the pool: batch indices and keys of at most MAX_PROBE waiting keys
+    int pidx[MAX_PROBE], pkey[MAX_PROBE];
+    int np = 0;
+    const long long stop = first + spt;
+    for (long long u = empty + 1;; ++u) {
+        const uint32_t s = (uint32_t)u & mask;
+        const int bucket = np;
+        for (int i = head[s]; i >= 0; i = next[i]) {
+            if (np == MAX_PROBE) {  // a window overflow is certain
+                ok[0] = 0;
+                return;
+            }
+            const int key = keys[i];
+            for (int j = bucket; j < np; ++j)
+                if (pkey[j] == key) {  // a duplicate
+                    ok[0] = 0;
+                    return;
+                }
+            pidx[np] = i;
+            pkey[np] = key;
+            ++np;
+        }
+        if (np == 0) {  // slot s ends up empty
+            if (u >= stop) return;
+            continue;
+        }
+        int best = 0;
+        for (int j = 1; j < np; ++j)
+            if (pidx[j] < pidx[best]) best = j;
+        const int key = pkey[best];
+        if (((s - home_slot(key, mask)) & mask) >= MAX_PROBE) {  // outside its window
+            ok[0] = 0;
+            return;
+        }
+        tkeys[s] = key;
+        tentry[s] = pidx[best];
+        --np;
+        pidx[best] = pidx[np];
+        pkey[best] = pkey[np];
+    }
+}
+
+// n == cap only (no slot ends up empty): the sequential insert, one warp
+// in batch order. Lanes 0..15 read the key's window in one load, a ballot
+// finds the first EMPTY or equal slot, one lane stores, and __syncwarp()
+// orders that store before the next key's load. It stops at the first
+// failure. tkeys is read and written by different lanes, so it is neither
+// const nor __restrict__.
+__global__ void ins_seq_kernel(const int* __restrict__ keys, long long n, int* tkeys,
+                               int* tentry, long long cap, int* __restrict__ ok) {
     const unsigned FULL = 0xFFFFFFFFu;
     const int lane = threadIdx.x;
     const uint32_t mask = (uint32_t)(cap - 1);
@@ -189,6 +380,10 @@ __global__ void insert_kernel(const int* __restrict__ keys, long long n, int* tk
         const int count = n - base < 32 ? (int)(n - base) : 32;
         for (int j = 0; j < count; ++j) {
             const int key = __shfl_sync(FULL, mine, j);
+            if (key == EMPTY_KEY) {
+                good = 0;
+                break;
+            }
             const uint32_t slot = (home_slot(key, mask) + (uint32_t)lane) & mask;
             const int cur = lane < MAX_PROBE ? tkeys[slot] : 0;
             // the first EMPTY or equal slot in probe order; EMPTY wins a tie,
@@ -257,15 +452,55 @@ extern "C" int hp_probe_multi64(const void* keys, const void* tkeys, const void*
     return (int)cudaGetLastError();
 }
 
+// the sweep's tiling of a table of cap slots
+static void ins_tiling(long long cap, int* spt, int* threads, long long* n_tiles) {
+    const long long tile = cap < INS_TILE ? cap : INS_TILE;
+    *spt = cap < INS_SPT ? (int)cap : INS_SPT;
+    *threads = (int)(tile / *spt);
+    *n_tiles = cap / tile;
+}
+
+// int32 words of scratch hp_build_insert needs: counts and bucket heads
+// (cap each), bucket links (n), tile maps (2 per tile) and carries
+extern "C" long long hp_build_insert_scratch(long long n, long long cap) {
+    int spt, threads;
+    long long n_tiles;
+    ins_tiling(cap, &spt, &threads, &n_tiles);
+    return 2 * cap + n + 3 * n_tiles;
+}
+
+// keys [n] -> tkeys, tentry [cap], ok [1]; cap a power of two; scratch holds
+// hp_build_insert_scratch(n, cap) int32 words
 extern "C" int hp_build_insert(const void* keys, void* tkeys, void* tentry, void* ok,
-                               long long n, long long cap, void* stream) {
+                               void* scratch, long long n, long long cap, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
+    if (cap < 1 || (cap & (cap - 1)) || cap > (1LL << 30)) return (int)cudaErrorInvalidValue;
+    int* count = (int*)scratch;
+    int* head = count + cap;
+    int* next = head + cap;
     const long long fill_blocks = (cap + BLOCK - 1) / BLOCK;
-    insert_fill_kernel<<<(unsigned)(fill_blocks < 4096 ? fill_blocks : 4096), BLOCK, 0, st>>>(
-        (int*)tkeys, (int*)tentry, cap);
+    ins_fill_kernel<<<(unsigned)(fill_blocks < 4096 ? fill_blocks : 4096), BLOCK, 0, st>>>(
+        (int*)tkeys, (int*)tentry, count, head, cap, (int*)ok, n <= cap);
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    insert_kernel<<<1, 32, 0, st>>>((const int*)keys, n, (int*)tkeys, (int*)tentry, cap,
-                                    (int*)ok);
+    if (err != cudaSuccess || n == 0 || n > cap) return (int)err;
+    if (n == cap) {
+        ins_seq_kernel<<<1, 32, 0, st>>>((const int*)keys, n, (int*)tkeys, (int*)tentry, cap,
+                                         (int*)ok);
+        return (int)cudaGetLastError();
+    }
+    int spt, threads;
+    long long n_tiles;
+    ins_tiling(cap, &spt, &threads, &n_tiles);
+    MaxPlus* tile_map = (MaxPlus*)(next + n);
+    int* carry = (int*)(tile_map + n_tiles);
+    const uint32_t mask = (uint32_t)(cap - 1);
+    ins_link_kernel<<<grid_of(n), BLOCK, 0, st>>>((const int*)keys, (int)n, count, head, next,
+                                                  mask, (int*)ok);
+    const size_t shmem = threads * sizeof(MaxPlus);
+    ins_tile_kernel<<<(unsigned)n_tiles, threads, shmem, st>>>(count, spt, tile_map);
+    ins_carry_kernel<<<1, 1024, 1024 * sizeof(MaxPlus), st>>>(tile_map, (int)n_tiles, carry);
+    ins_sweep_kernel<<<(unsigned)n_tiles, threads, shmem, st>>>(
+        (const int*)keys, count, head, next, carry, spt, mask, (int*)tkeys, (int*)tentry,
+        (int*)ok);
     return (int)cudaGetLastError();
 }

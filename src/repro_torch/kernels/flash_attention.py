@@ -4,18 +4,21 @@
 (``src/repro/kernels/flash_attention.py`` ``_flash_kernel``: 128 x 128
 tiles, the KV tiles as its sequential grid dimension) to hand-written CUDA
 (``csrc/flash_attention.cu``; the note at its top says what bounds it and
-how it is built). The layout is the reference's, ``[BH, S, dh]``, and so
-are the semantics: float32 scores scaled by 1/sqrt(dh), masked scores
--1e30, float32 ``m``, ``l`` and ``acc``, ``p`` rounded to ``v``'s type
-before the P.V product, the output ``acc / max(l, 1e-30)`` in ``q``'s type.
+how it is built): bf16 on the tensor cores (``wgmma`` fed by TMA), float32
+on CUDA cores. The layout is the reference's, ``[BH, S, dh]``, and so are
+the semantics: scores accumulated in float32 and scaled by 1/sqrt(dh),
+masked scores -1e30, float32 ``m``, ``l`` and ``acc``, ``p`` rounded to
+``v``'s type before the P.V product, the output ``acc / max(l, 1e-30)`` in
+``q``'s type.
 
-The plain version walks the kernel's 64-key tiles in the same online
-softmax, every tile for every row (a tile the kernel skips adds exactly
-nothing there). The two add their products in other orders, so they agree
-within float32 rounding, not bit for bit: the tests and ``chip_smoke.py``
-hold them, and both against the full-softmax oracle, within rtol 1e-5 /
-atol 1e-4 in float32 (the reference's tolerance) and, in bf16, within
-2e-2 |want| + 0.1 rms(want's row), the row being one query's output.
+The plain version walks the kernels' 64-key tiles in the same online
+softmax, every tile for every row (a tile the kernels skip adds exactly
+nothing there), so in bf16 it rounds ``p`` at the same running maxima.
+They add their products in other orders, so they agree within float32
+rounding, not bit for bit: the tests and ``chip_smoke.py`` hold them, and
+both against the full-softmax oracle, within rtol 1e-5 / atol 1e-4 in
+float32 (the reference's tolerance) and, in bf16, within 2e-2 |want| + 0.1
+rms(want's row), the row being one query's output.
 """
 
 from __future__ import annotations
@@ -24,15 +27,20 @@ import math
 import numbers
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 #: the reference's sequence tile (``flash_attention.py`` BLOCK_Q, BLOCK_K)
 SEQ_MULTIPLE = 128
-#: keys per tile of the kernel's online softmax
+#: keys per tile of the kernels' online softmax
 BLOCK_K = 64
-#: the largest head width the kernel's register tiles hold
+#: the largest head width the kernels' register tiles hold
 MAX_HEAD_DIM = 256
+#: head-width tiers of the kernels; a TMA row is a multiple of 16 bytes, so
+#: bf16 rows of another width are padded with zero columns to their tier
+WIDTH_TIERS = (64, 128, 256)
+TMA_ROW_MULTIPLE = 8
 NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -57,7 +65,7 @@ def _check(q, k, v, window):
 
 
 def flash_attention_plain(q, k, v, window=None):
-    """The kernel's online softmax over 64-key tiles, in PyTorch."""
+    """The kernels' online softmax over 64-key tiles, in PyTorch."""
     bh, s, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -94,13 +102,17 @@ def flash_attention(q, k, v, *, window=None):
         raise ValueError(f"flash_attention: tensors on {q.device}; the kernel runs on a CUDA card")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, s, dh = q.shape
+    width = dh
+    if q.dtype == torch.bfloat16 and dh % TMA_ROW_MULTIPLE:
+        width = next(t for t in WIDTH_TIERS if t >= dh)
+        q, k, v = (F.pad(t, (0, width - dh)) for t in (q, k, v))
     o = torch.empty_like(q)
-    fn = _build.bind("flash_attention", "fa_flash_attention", 4, 5, 1)
+    fn = _build.bind("flash_attention", "fa_flash_attention", 4, 6, 1)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, dh,
-        0 if window is None else min(int(window), s), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, width,
+        0 if window is None else min(int(window), s), int(q.dtype == torch.bfloat16), dh,
         _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_attention")
     _build.count_launch("flash_attention")
-    return o
+    return o if width == dh else o[..., :dh].contiguous()

@@ -28,6 +28,7 @@ CPU tensors; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -35,6 +36,7 @@ from . import _build
 MAX_PROBE = 16
 EMPTY = -0x7FFFFFFF
 MULT = 2654435761
+MULT_INV = pow(MULT, -1, 1 << 32)
 
 _LO32 = 0xFFFFFFFF
 
@@ -46,6 +48,17 @@ def _hash(keys: torch.Tensor, cap: int) -> torch.Tensor:
     multiply wraps, and the low 32 bits — all the mask keeps — are exact
     under wraparound."""
     return ((keys.to(torch.int64) & _LO32) * MULT) & (cap - 1)
+
+
+def keys_at(homes, cap, start=0):
+    """int32 keys whose home slots in a table of ``cap`` slots are ``homes``
+    (numpy), for building tables with chosen clusters: MULT is odd, so x =
+    home + cap r times its inverse modulo 2^32 hashes to home. r runs on
+    from ``start``, so the keys of one home are distinct."""
+    span = (1 << 32) // cap
+    r = ((int(start) + np.arange(len(homes))) % span).astype(np.uint64)
+    x = (np.asarray(homes, np.uint64) + np.uint64(cap) * r) & np.uint64(_LO32)
+    return ((x * np.uint64(MULT_INV)) & np.uint64(_LO32)).astype(np.uint32).view(np.int32)
 
 
 def _check(name, device, *tensors):
@@ -250,12 +263,16 @@ def hash_build_insert_plain(keys, capacity):
     """The reference's sequential insert, key by key in batch order, on
     host integers (a loop of small tensor ops would cost microseconds per
     key). Unlike the kernel it goes on past a failure, as the reference
-    does, so its tables equal the reference's also where ``ok`` is 0."""
+    does, so its tables equal the reference's also where ``ok`` is 0. A
+    key equal to EMPTY, which the reference's contract excludes, clears
+    ``ok``: its slot could not be told from an empty one."""
     mask = capacity - 1
     tk = [EMPTY] * capacity
     te = [-1] * capacity
     ok = 1
     for i, key in enumerate(keys.tolist()):
+        if key == EMPTY:
+            ok = 0
         home = ((key & _LO32) * MULT) & mask
         for h in range(MAX_PROBE):
             slot = (home + h) & mask
@@ -282,22 +299,27 @@ def hash_build_insert(keys, capacity):
     EMPTY values) with ``capacity`` slots (a power of two, >= 2N), placing
     key i at the first EMPTY slot of its probe window in batch order.
     Returns ``(table_keys, table_entry, ok)``: int32 ``[capacity]`` keys and
-    slot -> batch index, and int32 ``[1]`` ``ok``, 0 when a duplicate key
-    or a window with no EMPTY slot makes the table unservable. The CUDA
-    kernel stops at the first failure, so where ``ok`` is 0 its table is
-    not the plain version's; callers discard such a table."""
+    slot -> batch index, and int32 ``[1]`` ``ok``, 0 when a duplicate key,
+    an EMPTY key or a window with no EMPTY slot makes the table unservable.
+    The CUDA kernel sweeps the slots in parallel and builds the sequential
+    table exactly (the note in ``csrc/hash_probe.cu`` has the proof); it
+    stops a segment at its first failure, so where ``ok`` is 0 its table is
+    not the plain version's, and callers discard such a table."""
     name = "hash_build_insert"
     _check(name, keys.device, keys)
     _check_cap(name, capacity)
     if keys.device.type == "cpu":
         return hash_build_insert_plain(keys, capacity)
+    n = keys.shape[0]
     tkeys = torch.empty(capacity, dtype=torch.int32, device=keys.device)
     tentry = torch.empty(capacity, dtype=torch.int32, device=keys.device)
     ok = torch.empty(1, dtype=torch.int32, device=keys.device)
-    fn = _build.bind("hash_probe", "hp_build_insert", 4, 2, 1)
+    words = _build.bind("hash_probe", "hp_build_insert_scratch", 0, 2, restype="longlong")
+    scratch = torch.empty(words(n, capacity), dtype=torch.int32, device=keys.device)
+    fn = _build.bind("hash_probe", "hp_build_insert", 5, 2, 1)
     err = fn(
         keys.data_ptr(), tkeys.data_ptr(), tentry.data_ptr(), ok.data_ptr(),
-        keys.shape[0], capacity, _build.stream_ptr(keys.device),
+        scratch.data_ptr(), n, capacity, _build.stream_ptr(keys.device),
     )
     _build.check(err, name)
     _build.count_launch(name)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build, flash_attention, fused_chain, hash_probe, linrec
 from repro_torch.kernels import ref, seg_aggregate
 from repro_torch.kernels.fused_chain import total_order_u32
-from repro_torch.kernels.hash_probe import EMPTY, MULT
+from repro_torch.kernels.hash_probe import EMPTY, MULT, keys_at
 
 pytestmark = pytest.mark.cuda
 
@@ -204,10 +204,14 @@ def test_cuda_probe_multi_slot32_matches_plain(cuda, case):
 
 
 def _insert_keys(case, n=3000):
+    """(keys, capacity, expected ok) of one case."""
     rng = np.random.default_rng(7)
     keys = rng.choice(1 << 24, n, replace=False).astype(np.int32)
+    if case == "unique":
+        return keys, 8192, 1
     if case == "duplicate":
         keys[n // 2] = keys[n // 3]
+        return keys, 8192, 0
     if case == "cluster":
         extra, k = [], 1 << 25
         while len(extra) < 20:
@@ -215,19 +219,36 @@ def _insert_keys(case, n=3000):
                 extra.append(k)
             k += 1
         keys[100:120] = extra
-    return keys
+        return keys, 8192, 0
+    if case == "dense_2^20":  # 2^20 keys into 2^21 slots, every window holds
+        return rng.permutation(1 << 20).astype(np.int32), 1 << 21, 1
+    if case == "random_2^20":  # the same size, one window overflows
+        return rng.choice(1 << 30, 1 << 20, replace=False).astype(np.int32), 1 << 21, 0
+    if case == "wrap":  # clusters across the table's end among distinct homes
+        homes = np.concatenate([[8191] * 6, [0] * 6, 8 + rng.choice(8176, 2940, replace=False)])
+        return keys_at(homes, 8192, rng.integers(1 << 20)), 8192, 1
+    if case in ("window_16", "window_17"):  # the last key at distance 15 / 16
+        count = int(case[-2:])
+        cluster = keys_at([40] * count, 8192, rng.integers(1 << 20))
+        return np.concatenate([cluster, keys[:500]]), 8192, count == 16
+    if case == "full":  # n == cap: no slot ends up empty
+        return keys_at(rng.permutation(8), 8, rng.integers(1 << 20)), 8, 1
+    if case == "empty":
+        return keys[:0], 64, 1
+    raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["unique", "duplicate", "cluster"])
+@pytest.mark.parametrize("case", ["unique", "duplicate", "cluster", "dense_2^20", "random_2^20",
+                                  "wrap", "window_16", "window_17", "full", "empty"])
 def test_cuda_build_insert_matches_plain(cuda, case):
-    """Tables equal where ``ok`` is 1 (the kernel stops at its first
-    failure, the plain version goes on); ``ok`` always."""
-    keys = _insert_keys(case)
-    got = hash_probe.hash_build_insert(_t(keys, cuda), 8192)
-    want = hash_probe.hash_build_insert_plain(_t(keys), 8192)
+    """Tables equal where ``ok`` is 1 (a failing segment of the sweep stops
+    where it fails, the plain version goes on); ``ok`` always."""
+    keys, cap, ok = _insert_keys(case)
+    got = hash_probe.hash_build_insert(_t(keys, cuda), cap)
+    want = hash_probe.hash_build_insert_plain(_t(keys), cap)
     assert torch.equal(got[2].cpu(), want[2])
-    assert int(want[2][0]) == (1 if case == "unique" else 0)
-    if int(want[2][0]):
+    assert int(want[2][0]) == ok
+    if ok:
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
 
@@ -294,16 +315,36 @@ def _assert_attention_close(got, want):
     assert bool((diff <= limit).all()), f"off by {float(diff.max())}"
 
 
-@pytest.mark.parametrize("dh", [64, 120, 256])
-@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("s", [128, 512, 4096])
+@pytest.mark.parametrize("dh", [64, 100, 120, 128, 256])
+@pytest.mark.parametrize("window", [None, 1, 64, 200, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_cuda_flash_attention_matches_plain(cuda, dh, window, dtype):
-    q, k, v = _attention_inputs(3, 512, dh, dtype, seed=dh)
-    got = flash_attention.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), window=window)
+def test_cuda_flash_attention_matches_plain(cuda, s, dh, window, dtype):
+    """Every width tier (dh 120 reads zeros past its rows; bf16 dh 100 is
+    padded to 128 by the wrapper), windows from 1 key to wider than S."""
+    q, k, v = (t.to(cuda) for t in _attention_inputs(3 if s <= 512 else 1, s, dh, dtype, seed=dh))
+    got = flash_attention.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     _assert_attention_close(got, flash_attention.flash_attention_plain(q, k, v, window))
     _assert_attention_close(got, ref.flash_attention_ref(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("dh", [100, 128])
+def test_cuda_flash_attention_is_one_kernel(cuda, dh):
+    """A bf16 call launches one attention kernel (the padding of dh 100 is
+    PyTorch's own copies), and counts one launch."""
+    q, k, v = (t.to(cuda) for t in _attention_inputs(2, 256, dh, torch.bfloat16))
+    flash_attention.flash_attention(q, k, v)  # build and warm up
+    torch.cuda.synchronize()
+    before = _build.launch_counts().get("flash_attention", 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        flash_attention.flash_attention(q, k, v, window=64)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("fa_tc_kernel" in n for n in names) == 1, names
+    assert not any("fa_kernel" in n for n in names), names
+    assert _build.launch_counts()["flash_attention"] == before + 1
 
 
 @pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 1024, 256), (3, 512, 384)])

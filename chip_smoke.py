@@ -15,7 +15,9 @@ itself and drives ``graftdb_torch``. Phases:
    into 2^22 slots, its plain version on host copies, and three more
    inserts: 2^19 keys into 2^20 slots with clusters that wrap round the
    table's end, a window overflow (17 keys on one home) and a duplicate
-   key; the segmented sum of 65,536 rows into 8 and 4,096 groups). Probe
+   key; the segmented sum of 65,536 rows into 8 and 4,096 groups and of
+   the main path's largest row count, 129,246, into 4,096, each beside
+   ``index_add_``; phase 7 times its passes apart). Probe
    and insert outputs are integers (an insert's tables are compared where
    ``ok`` is 1, ``ok`` always) and the segmented sum fixes its order of
    additions, which its plain version repeats, so every comparison is
@@ -50,7 +52,13 @@ itself and drives ``graftdb_torch``. Phases:
    TFLOP/s over the whole 64 x 64 tiles the kernel computes and its share
    of the bound; the phase records the ptxas register and spill lines of
    each attention kernel instance and the tensor-core instructions
-   (``HGMMA``, ``HMMA``) and TMA loads in the library's SASS.
+   (``HGMMA``, ``HMMA``) and TMA loads in the library's SASS, and fails
+   unless the bf16 kernel holds ``wgmma`` and every float32 instance holds
+   TF32 ``HMMA`` (``mma.sync``) and spills nothing;
+7. the segmented sum's phase-3 calls and its main-path replay: the two
+   passes by device time from a ``torch.profiler`` trace, last, since a
+   trace leaves every later launch slower on the host, and the wrapper's
+   event mean again after the traces.
 
 Comparisons are exact except for flash attention, which adds its
 products in another order than its plain version and the full-softmax
@@ -96,10 +104,13 @@ SEED = 7
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the CUDA-core
 #: float32 rate (also used as the ALU rate of 32-bit integer work), and the
-#: bf16 tensor-core rate
+#: bf16 and TF32 tensor-core rates. float32 work that must keep float32's
+#: accuracy runs fastest as three TF32 products, at a third of the TF32 rate
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 494.7e12
+F32_ACCURATE_OPS_PER_S = TF32_TENSOR_OPS_PER_S / 3
 
 #: the kernel-ops path: attention calls (label, [BH, S, dh], dtype, window)
 #: at the widths of configurations the reference ships, at its train_4k
@@ -118,6 +129,8 @@ ATTENTION_TOL = {"float32": dict(rtol=1e-5, atol=1e-4),
                  "bfloat16": dict(rtol=2e-2, row_atol=0.1)}
 #: the reference's tolerance of the recurrence against its oracle
 LINREC_TOL = dict(rtol=1e-4, atol=1e-4)
+#: rows of the main path's largest segmented sum (SF 1, opt-in leg)
+SEG_PATH_ROWS = 129_246
 
 KERNELS = {
     "fused_chain": ("src/repro_torch/kernels/csrc/fused_chain.cu",
@@ -173,12 +186,104 @@ def time_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def enqueue_ms(fn, iters):
+    """Host milliseconds per call of ``fn`` with no wait for the card: the
+    wrapper's own cost, which sets the CUDA-event mean of a call whose
+    kernels take less."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
+def seg_entry_ms(codes, vals, n_groups):
+    """Milliseconds per call of the segmented sum's launch on preallocated
+    buffers (CUDA events): its two kernels and their launches without the
+    wrapper's allocations, whose host time sets the wrapper's event mean
+    at these sizes (``enqueue_ms``). ``seg_launch`` raises on a refused or
+    failed launch, so no such call is timed."""
+    from repro_torch.kernels import seg_aggregate as sa
+
+    partial, out = sa.seg_buffers(n_groups, vals)
+    return time_ms(lambda: sa.seg_launch(codes, vals, partial, out), SEG_ITERS)
+
+
+#: the segmented sum's calls whose passes the last phase times apart
+#: (``trace_seg_passes``): label, call and its ``index_add_`` twin
+SEG_TRACES = []
+#: calls per CUDA-event mean of the segmented sum, whose host-bound means
+#: vary from call to call
+SEG_ITERS = 200
+
+
+def seg_times(label, call, codes, vals, n_groups):
+    """B7 beyond its event mean: its host time per call, its launch on
+    preallocated buffers, and ``index_add_`` (zeros and the add: the same
+    sums, in no fixed order) by event mean. Its passes are timed apart
+    from a profiler trace only in the last phase, since a trace leaves the
+    process's later launches slower on the host."""
+    import torch
+
+    def library():
+        out = torch.zeros(n_groups, vals.shape[1], device=vals.device)
+        return out.index_add_(0, codes, vals)
+
+    SEG_TRACES.append((label, call, library))
+    return {
+        "library_ms": time_ms(library, SEG_ITERS),
+        "enqueue_ms": enqueue_ms(call, SEG_ITERS),
+        "entry_ms": seg_entry_ms(codes, vals, n_groups),
+    }
+
+
+def trace_seg_passes(report):
+    """Last phase, after every event mean and leg: each recorded B7 call's
+    two passes and ``index_add_`` by device time from a profiler trace,
+    then the wrapper's event mean again, which shows what the traces cost
+    each later launch on the host."""
+    recs = {}
+    for label, call, library in SEG_TRACES:
+        recs[label] = {"passes_ms": kernel_device_ms(call, 50),
+                       "library_device_ms": sum(kernel_device_ms(library, 50).values())}
+    for label, call, _ in SEG_TRACES:
+        recs[label]["ms_after_traces"] = time_ms(call, SEG_ITERS)
+        log(f"seg_aggregate {label}: passes {recs[label]['passes_ms']}, index_add_ "
+            f"{recs[label]['library_device_ms']:.5f} ms on the device; wrapper "
+            f"{recs[label]['ms_after_traces']:.4f} ms after the traces")
+    report["seg_traces"] = recs
+
+
 def host_ms(fn):
     """Milliseconds of one call of ``fn`` on the host clock (for plain
     versions that run on host copies)."""
     t0 = time.perf_counter()
     fn()
     return (time.perf_counter() - t0) * 1e3
+
+
+def kernel_device_ms(fn, iters):
+    """Mean device milliseconds per call of each CUDA kernel that ``fn``
+    launches, by kernel name, from a ``torch.profiler`` trace of ``iters``
+    calls after warm-up: the passes of a multi-kernel wrapper timed apart."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {name: us / iters / 1e3 for name, us in total.items()}
 
 
 def probe_touch(keys, tkeys):
@@ -271,14 +376,16 @@ def attention_tile_flops(q, window):
 
 def attention_bound(q, window):
     """Flash attention must read q, k and v and write o once, and do 4 dh
-    flops (two products) per visible (query, key) pair, at the tensor-core
-    rate in bf16 and the CUDA-core rate in float32."""
+    flops (two products) per visible (query, key) pair, at the bf16
+    tensor-core rate in bf16 and, in float32, at the fastest rate that
+    holds float32's accuracy: three TF32 products (164.9 TFLOP/s, above the
+    CUDA cores' 67)."""
     import torch
 
     bh, s, dh = q.shape
     t = np.arange(s, dtype=np.int64)
     pairs = bh * int(np.minimum(t + 1, s if window is None else window).sum())
-    rate = BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16 else ALU_OPS_PER_S
+    rate = BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16 else F32_ACCURATE_OPS_PER_S
     return bound(4 * q.numel() * q.element_size(), 4 * dh * pairs, rate)
 
 
@@ -437,6 +544,8 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
     simple = (plain_spec, [bits_lo, bits_hi, k, tk, te, lo, hi, arrays[7], arrays[8]])
     codes = {g: t(rng.integers(0, g, n_probe).astype(np.int32)) for g in (8, 4096)}
     vals = t(rng.normal(size=(n_probe, 1)).astype(np.float32))
+    long_codes = t(rng.integers(0, 4096, SEG_PATH_ROWS).astype(np.int32))
+    long_vals = t(rng.normal(size=(SEG_PATH_ROWS, 1)).astype(np.float32))
     return {
         "hash_probe_lens": ("hash_probe_lens", (k, tk, ones, all_mask)),
         "hash_probe_lens64": ("hash_probe_lens64", (k, tk, te, lo, hi, lens_mask)),
@@ -448,6 +557,7 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
         **insert_inputs(keys, len(tkeys), rng, t),
         "seg_aggregate_g8": ("seg_aggregate", (codes[8], vals, 8)),
         "seg_aggregate_g4096": ("seg_aggregate", (codes[4096], vals, 4096)),
+        "seg_aggregate_g4096_path_rows": ("seg_aggregate", (long_codes, long_vals, 4096)),
     }
 
 
@@ -520,7 +630,7 @@ def max_abs_err(name, got, want):
     return err
 
 
-def compare(name, args, timed=True, iters=20):
+def compare(name, args, timed=True, iters=20, label=None):
     """Run a kernel and its plain version on the same card inputs; require
     exact equality; return error, times, bound and, where one PyTorch call
     computes the same function, that call's time."""
@@ -544,17 +654,14 @@ def compare(name, args, timed=True, iters=20):
         rec["plain_on"] = "host"
         rec["bound_ms"], rec["bound_by"] = insert_bound(args[0], args[1], want[0])
         return rec
-    rec["ms"] = time_ms(lambda: kern(*args), iters)
+    rec["ms"] = time_ms(lambda: kern(*args), SEG_ITERS if name == "seg_aggregate" else iters)
     rec["plain_ms"] = time_ms(lambda: plain(*args), max(2, iters // 4))
     if name == "fused_chain":
         rec["bound_ms"], rec["bound_by"] = chain_bound(args[0], args[1], got[0])
     elif name == "seg_aggregate":
         codes, vals, g = args
         rec["bound_ms"], rec["bound_by"] = seg_bound(codes, vals, g)
-        rec["library_ms"] = time_ms(
-            lambda: torch.zeros(g, vals.shape[1], device=vals.device).index_add_(0, codes, vals),
-            iters,
-        )
+        rec.update(seg_times(label, lambda: kern(*args), codes, vals, g))
     else:
         rec["bound_ms"], rec["bound_by"] = probe_bound(name, args)
     return rec
@@ -763,12 +870,14 @@ def smoke(report):
     inputs = kernel_inputs(db)
     synth = {}
     for label, (kname, kin) in inputs.items():
-        rec = compare(kname, kin)
+        rec = compare(kname, kin, label=label)
         synth[label] = rec
         lib = "" if rec["library_ms"] is None else f", index_add_ {rec['library_ms']:.4f} ms"
         ok = f" (ok {rec['ok']})" if "ok" in rec else ""
+        host = (f"; launch on its buffers {rec['entry_ms']:.4f} ms, enqueue "
+                f"{rec['enqueue_ms']:.4f} ms" if "entry_ms" in rec else "")
         log(f"kernel {label}: equal to plain{ok}; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}{lib})")
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}{lib}){host}")
     a, b = (kernel_pair("seg_aggregate")[0](*inputs["seg_aggregate_g4096"][1]) for _ in range(2))
     if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
         raise AssertionError("seg_aggregate: two calls on the same inputs differ")
@@ -809,13 +918,15 @@ def smoke(report):
             continue
         if kname in recorder.calls:
             size, kin = recorder.calls[kname]
-            rec = compare(kname, kin)
             where = f"main-path replay {kname} (size {size})"
+            rec = compare(kname, kin, label=where)
         else:  # on no engine path: its phase-3 numbers
             size, rec = None, synth[kname]
             where = f"kernel {kname} (phase 3)"
+        host = (f"; launch on its buffers {rec['entry_ms']:.4f} ms, enqueue "
+                f"{rec['enqueue_ms']:.4f} ms" if "entry_ms" in rec else "")
         log(f"{where}: equal to plain; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}){host}")
         runs = optin_launches if kname in OPTIN_KERNELS else default_launches
         rows.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -879,12 +990,24 @@ def recurrence_inputs(rng, shape, lo=0.7, scale=0.2):
     return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
 
 
-def attention_record(q, k, v, window, got):
-    """``got`` (the kernel's output) against the plain version and the
-    full-softmax oracle; times of the kernel, the plain version and SDPA."""
+def sdpa(q, k, v, window):
+    """The library's attention on the same inputs, as a call: SDPA on
+    ``[1, BH, S, dh]`` views (it fuses only 4-D inputs), causal, with the
+    window as a boolean mask."""
     import torch
     import torch.nn.functional as F
 
+    q4, k4, v4 = q[None], k[None], v[None]
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    keep = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)
+
+
+def attention_record(q, k, v, window, got):
+    """``got`` (the kernel's output) against the plain version and the
+    full-softmax oracle; times of the kernel, the plain version and SDPA."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -896,15 +1019,7 @@ def attention_record(q, k, v, window, got):
         "flash_attention vs ref", got, ref.flash_attention_ref(q, k, v, window=window), **tol)
     rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, window=window), 10)
     rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, window), 3)
-    # as [1, BH, S, dh]: SDPA's fused kernels take only 4-D inputs
-    q4, k4, v4 = q[None], k[None], v[None]
-    if window is None:
-        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
-    else:
-        pos = torch.arange(q.shape[1], device=q.device)
-        keep = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep)  # noqa: E731
-    rec["library_ms"] = time_ms(lib, 10)
+    rec["library_ms"] = time_ms(sdpa(q, k, v, window), 10)
     rec["bound_ms"], rec["bound_by"] = attention_bound(q, window)
     rec["tile_flops"] = attention_tile_flops(q, window)
     rec["tflops"] = rec["tile_flops"] / rec["ms"] / 1e9
@@ -934,7 +1049,9 @@ def recurrence_record(a, b, got):
 def attention_build_record():
     """The ptxas register and spill lines of each attention kernel instance,
     and the tensor-core instructions and TMA loads in the library's SASS
-    (``cuobjdump``): ``HGMMA`` is wgmma, ``HMMA`` mma.sync."""
+    (``cuobjdump``): ``HGMMA`` is wgmma, ``HMMA`` mma.sync. The bf16 kernel
+    must hold ``HGMMA``; each float32 instance (``fa_tf32x3_kernel``) must
+    hold TF32 ``HMMA`` in its own function and spill nothing."""
     from repro_torch.kernels import _build
 
     instances, name = {}, None
@@ -946,6 +1063,13 @@ def attention_build_record():
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path("flash_attention"))],
                           capture_output=True, text=True, check=True).stdout
+    functions, fname = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fname = ln.split("Function :", 1)[1].strip()
+            functions[fname] = []
+        elif fname:
+            functions[fname].append(ln)
     sass_lines = sass.splitlines()
     counts = {op: sum(f" {op}" in ln for ln in sass_lines) for op in ("HGMMA", "HMMA", "UTMALDG")}
     if not any("fa_tc_kernel" in inst for inst in instances):
@@ -954,9 +1078,19 @@ def attention_build_record():
         log(f"  ptxas flash_attention {inst}: {' / '.join(report)}")
     if counts["HGMMA"] == 0:
         raise AssertionError("flash_attention: no wgmma (HGMMA) in the library's SASS")
+    f32 = {fn: sum(" HMMA" in ln and "TF32" in ln for ln in lines)
+           for fn, lines in functions.items() if "fa_tf32x3_kernel" in fn}
+    if len(f32) != 3 or not all(f32.values()):
+        raise AssertionError(f"flash_attention: float32 instances without TF32 HMMA: {f32}")
+    f32_ptxas = {inst: rep for inst, rep in instances.items() if "fa_tf32x3_kernel" in inst}
+    spilled = [inst for inst, rep in f32_ptxas.items()
+               if not any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in rep)]
+    if len(f32_ptxas) != 3 or spilled:
+        raise AssertionError(f"flash_attention: float32 instances spill or lack a report: {spilled}")
     variant = "wgmma + TMA" if counts["UTMALDG"] else "wgmma"
-    log(f"  flash_attention SASS: {counts}: bf16 on {variant}")
-    return {"ptxas": instances, "sass": counts, "bf16_variant": variant}
+    log(f"  flash_attention SASS: {counts}: bf16 on {variant}; float32 TF32 HMMA per instance "
+        f"{f32}, no spills")
+    return {"ptxas": instances, "sass": counts, "bf16_variant": variant, "f32_tf32_hmma": f32}
 
 
 def kernel_ops(report):
@@ -1024,6 +1158,14 @@ def kernel_ops(report):
     return rows
 
 
+def card_smi():
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
 
@@ -1038,15 +1180,13 @@ def main():
 
     # 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_smi()
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     report = {"device": {"name": name, "nvidia_smi": smi}}
 
     rows = smoke(report)
     rows += kernel_ops(report)
+    trace_seg_passes(report)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

@@ -149,6 +149,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The handle of PyTorch's current stream on ``device``, read without
+    building a ``torch.cuda.Stream`` object: that object costs microseconds
+    of host time on every kernel call, as much as a small kernel runs."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

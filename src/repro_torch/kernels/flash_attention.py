@@ -4,15 +4,18 @@
 (``src/repro/kernels/flash_attention.py`` ``_flash_kernel``: 128 x 128
 tiles, the KV tiles as its sequential grid dimension) to hand-written CUDA
 (``csrc/flash_attention.cu``; the note at its top says what bounds it and
-how it is built): bf16 on the tensor cores (``wgmma`` fed by TMA), float32
-on CUDA cores. The layout is the reference's, ``[BH, S, dh]``, and so are
-the semantics: scores accumulated in float32 and scaled by 1/sqrt(dh),
-masked scores -1e30, float32 ``m``, ``l`` and ``acc``, ``p`` rounded to
-``v``'s type before the P.V product, the output ``acc / max(l, 1e-30)`` in
-``q``'s type.
+how it is built), both on the tensor cores: bf16 through ``wgmma`` fed by
+TMA, float32 through ``mma.sync`` with each product taken as three TF32
+products (each operand split into its TF32 rounding and the rest,
+``a_hi b_lo + a_lo b_hi + a_hi b_hi``), which holds float32's limits where
+one TF32 product does not. The layout is the reference's, ``[BH, S,
+dh]``, and so are the semantics: scores accumulated in float32 and scaled
+by 1/sqrt(dh), masked scores -1e30, float32 ``m``, ``l`` and ``acc``,
+``p`` rounded to ``v``'s type before the P.V product (not rounded in
+float32), the output ``acc / max(l, 1e-30)`` in ``q``'s type.
 
-The plain version walks the kernels' 64-key tiles in the same online
-softmax, every tile for every row (a tile the kernels skip adds exactly
+The plain version walks 64-key tiles (the bf16 kernel's) in the same
+online softmax, every tile for every row (a tile the kernels skip adds exactly
 nothing there), so in bf16 it rounds ``p`` at the same running maxima.
 They add their products in other orders, so they agree within float32
 rounding, not bit for bit: the tests and ``chip_smoke.py`` hold them, and
@@ -37,10 +40,14 @@ SEQ_MULTIPLE = 128
 BLOCK_K = 64
 #: the largest head width the kernels' register tiles hold
 MAX_HEAD_DIM = 256
-#: head-width tiers of the kernels; a TMA row is a multiple of 16 bytes, so
-#: bf16 rows of another width are padded with zero columns to their tier
+#: head-width tiers of the kernels; the kernels take rows of a multiple of 8
+#: elements (a bf16 TMA row is a multiple of 16 bytes, a float32 row a whole
+#: number of 16-byte copies), so rows of another width are padded with zero
+#: columns to their tier
 WIDTH_TIERS = (64, 128, 256)
-TMA_ROW_MULTIPLE = 8
+ROW_MULTIPLE = 8
+#: the byte boundary the kernels need each operand's base address on
+ALIGN = 16
 NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -100,10 +107,13 @@ def flash_attention(q, k, v, *, window=None):
         return flash_attention_plain(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {q.device}; the kernel runs on a CUDA card")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernels read rows from 16-byte aligned bases (TMA, cp.async): a
+    # view that starts elsewhere in its storage is copied to its own
+    q, k, v = (t.contiguous() if t.data_ptr() % ALIGN == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     bh, s, dh = q.shape
     width = dh
-    if q.dtype == torch.bfloat16 and dh % TMA_ROW_MULTIPLE:
+    if dh % ROW_MULTIPLE:
         width = next(t for t in WIDTH_TIERS if t >= dh)
         q, k, v = (F.pad(t, (0, width - dh)) for t in (q, k, v))
     o = torch.empty_like(q)

@@ -11,11 +11,15 @@ is float32, as in the reference, so the engine takes it only when asked
 The kernel fixes the order of every addition: rows are cut into chunks of
 ``seg_chunk(V)`` rows; within a chunk each group's values are added in
 ascending row order into a float64, and the chunk partials are added in
-chunk order before one rounding to float32. The plain version repeats
-that order exactly, so kernel and plain version give the same bits, and
-the same inputs give the same bits on every run. Against the reference,
-which adds in float32 in the MXU's order, results agree within float32
-rounding (rtol/atol 1e-4 in the tests, as the reference's own tests use).
+chunk order before one rounding to float32. Its first pass sorts each
+chunk's (code, row) pairs and sums each group's run, which holds the
+group's rows in that same order; its second pass loads all chunk
+partials of an output at once and then adds them in chunk order. The
+plain version repeats that order exactly, so kernel and plain version
+give the same bits, and the same inputs give the same bits on every run.
+Against the reference, which adds in float32 in the MXU's order, results
+agree within float32 rounding (rtol/atol 1e-4 in the tests, as the
+reference's own tests use).
 """
 
 from __future__ import annotations
@@ -88,16 +92,29 @@ def seg_aggregate(codes, values, n_groups):
     _check(codes, values, n_groups)
     if codes.device.type == "cpu":
         return seg_aggregate_plain(codes, values, n_groups)
+    partial, out = seg_buffers(n_groups, values)
+    seg_launch(codes, values, partial, out)
+    return out
+
+
+def seg_buffers(n_groups, values):
+    """The float64 chunk partials and the float32 ``[n_groups, V]`` output
+    that one kernel call on ``values`` writes."""
     n, v = values.shape
-    chunk = seg_chunk(v)
-    blocks = (n + chunk - 1) // chunk
-    partial = torch.empty(blocks * n_groups * v, dtype=torch.float64, device=codes.device)
-    out = torch.empty(n_groups, v, dtype=torch.float32, device=codes.device)
+    blocks = -(-n // seg_chunk(v))
+    return (torch.empty(blocks * n_groups * v, dtype=torch.float64, device=values.device),
+            torch.empty(n_groups, v, dtype=torch.float32, device=values.device))
+
+
+def seg_launch(codes, values, partial, out):
+    """Launch the kernel's two passes on checked CUDA operands into
+    ``seg_buffers``' ``partial`` and ``out``; raises when the C entry point
+    refuses the call or it fails to launch."""
+    n, v = values.shape
     fn = _build.bind("seg_aggregate", "sa_seg_aggregate", 4, 4, 1)
     err = fn(
         codes.data_ptr(), values.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, v, n_groups, chunk, _build.stream_ptr(codes.device),
+        n, v, out.shape[0], seg_chunk(v), _build.stream_ptr(codes.device),
     )
     _build.check(err, "seg_aggregate")
     _build.count_launch("seg_aggregate")
-    return out

@@ -253,21 +253,45 @@ def test_cuda_build_insert_matches_plain(cuda, case):
         assert torch.equal(got[1].cpu(), want[1])
 
 
-def _seg_inputs(n, v, g, seed=0):
+def _seg_inputs(n, v, g, seed=0, specials=False):
+    """Codes in [-1, G]: -1 and G match no group. Values over nine orders
+    of magnitude; with ``specials``, a few rows hold -0.0, +-inf or NaN."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(-1, g + 1, n).astype(np.int32)
     vals = (rng.normal(size=(n, v)) * 10.0 ** rng.integers(-4, 5, (n, v))).astype(np.float32)
+    if specials and n:
+        rows = rng.choice(n, min(n, 6), replace=False)
+        vals[rows] = rng.choice(np.array([-0.0, np.inf, -np.inf, np.nan], np.float32),
+                                (len(rows), v))
     return torch.from_numpy(codes), torch.from_numpy(vals)
 
 
-@pytest.mark.parametrize("n,v,g", [(100, 1, 8), (65_536, 1, 4096), (3000, 8, 64), (0, 1, 8)])
+def _same_bits(got, want):
+    """Equal bits everywhere, and NaN exactly where ``want`` is NaN (IEEE
+    754 leaves a NaN's sign and payload open, and x86 and the card choose
+    differently)."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+
+
+_SEG_CASES = [(n, v, g) for g in (1, 8, 4096, 65_536) for n in (0, 1, 511, 512, 513, 129_246)
+              for v in (1, 8)] + [(100, 1, 8), (65_536, 1, 4096), (3000, 8, 64)]
+
+
+@pytest.mark.parametrize("n,v,g", _SEG_CASES)
 def test_cuda_seg_aggregate_matches_plain(cuda, n, v, g):
-    codes, vals = _seg_inputs(n, v, g)
+    """Bit for bit against the plain version on the CPU and on the card,
+    with -0.0, +-inf and NaN among the values: chunk edges (511, 512, 513
+    rows), one group to more groups than a block has threads or shared
+    memory holds, and the engine's largest call (129,246 rows)."""
+    codes, vals = _seg_inputs(n, v, g, seed=n + v + g, specials=True)
     got = seg_aggregate.seg_aggregate(codes.to(cuda), vals.to(cuda), g)
     want = seg_aggregate.seg_aggregate_plain(codes, vals, g)
-    assert torch.equal(got.cpu(), want)
+    assert got.shape == want.shape and _same_bits(got, want)
     on_card = seg_aggregate.seg_aggregate_plain(codes.to(cuda), vals.to(cuda), g)
-    assert torch.equal(on_card.cpu(), want)
+    assert _same_bits(got, on_card)
 
 
 def test_cuda_seg_aggregate_is_deterministic(cuda):
@@ -330,21 +354,39 @@ def test_cuda_flash_attention_matches_plain(cuda, s, dh, window, dtype):
     _assert_attention_close(got, ref.flash_attention_ref(q, k, v, window=window))
 
 
-@pytest.mark.parametrize("dh", [100, 128])
-def test_cuda_flash_attention_is_one_kernel(cuda, dh):
-    """A bf16 call launches one attention kernel (the padding of dh 100 is
-    PyTorch's own copies), and counts one launch."""
-    q, k, v = (t.to(cuda) for t in _attention_inputs(2, 256, dh, torch.bfloat16))
-    flash_attention.flash_attention(q, k, v)  # build and warm up
+def _attention_kernels(q, k, v):
+    """Names of the CUDA kernels one ``flash_attention`` call launches (after
+    a warm-up call that builds the library), and the launches it counts."""
+    flash_attention.flash_attention(q, k, v)
     torch.cuda.synchronize()
     before = _build.launch_counts().get("flash_attention", 0)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         flash_attention.flash_attention(q, k, v, window=64)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names, _build.launch_counts()["flash_attention"] - before
+
+
+@pytest.mark.parametrize("dh", [100, 128])
+def test_cuda_flash_attention_is_one_kernel(cuda, dh):
+    """A bf16 call launches one attention kernel (the padding of dh 100 is
+    PyTorch's own copies), and counts one launch."""
+    q, k, v = (t.to(cuda) for t in _attention_inputs(2, 256, dh, torch.bfloat16))
+    names, counted = _attention_kernels(q, k, v)
     assert sum("fa_tc_kernel" in n for n in names) == 1, names
-    assert not any("fa_kernel" in n for n in names), names
-    assert _build.launch_counts()["flash_attention"] == before + 1
+    assert not any("fa_kernel" in n or "fa_tf32x3_kernel" in n for n in names), names
+    assert counted == 1
+
+
+@pytest.mark.parametrize("dh", [100, 128])
+def test_cuda_flash_attention_f32_is_one_kernel(cuda, dh):
+    """A float32 call launches one tensor-core kernel, the three-TF32-product
+    one, and none of the CUDA-core kernel it replaced."""
+    q, k, v = (t.to(cuda) for t in _attention_inputs(2, 256, dh, torch.float32))
+    names, counted = _attention_kernels(q, k, v)
+    assert sum("fa_tf32x3_kernel" in n for n in names) == 1, names
+    assert not any("fa_kernel" in n or "fa_tc_kernel" in n for n in names), names
+    assert counted == 1
 
 
 @pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 1024, 256), (3, 512, 384)])
@@ -380,3 +422,62 @@ def test_cuda_flash_attention_refuses_wide_heads(cuda):
     with pytest.raises(ValueError, match="head width"):
         flash_attention.flash_attention(q, q, q)
     assert _build.launch_counts().get("flash_attention", 0) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_takes_offset_views(cuda, dtype):
+    """Contiguous views that start one element into their storage, off the
+    16-byte boundary the kernels read from, are copied by the wrapper and
+    give the plain version's result."""
+    bh, s, dh = 2, 256, 64
+    q, k, v = (torch.cat([t.flatten()[:1], t.flatten()]).to(cuda)[1:].view(bh, s, dh)
+               for t in _attention_inputs(bh, s, dh, dtype))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    got = flash_attention.flash_attention(q, k, v, window=64)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, flash_attention.flash_attention_plain(q, k, v, 64))
+
+
+@pytest.mark.parametrize("is_bf16", [0, 1], ids=["f32", "bf16"])
+def test_cuda_flash_attention_entry_refuses_misaligned(cuda, is_bf16):
+    """The C entry point refuses a base address off the 16-byte boundary
+    (cudaErrorInvalidValue) and launches nothing, so the card goes on."""
+    buf = torch.zeros(128 * 64 + 8, device=cuda)
+    o = torch.empty(128 * 64, device=cuda)
+    fn = _build.bind("flash_attention", "fa_flash_attention", 4, 6, 1)
+    for base in (buf.data_ptr() + 4, buf.data_ptr() + 8):
+        err = fn(base, buf.data_ptr(), buf.data_ptr(), o.data_ptr(), 1, 128, 64, 0, is_bf16, 64,
+                 _build.stream_ptr(cuda))
+        assert err == 1  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    q, k, v = (t.to(cuda) for t in _attention_inputs(1, 128, 64, torch.float32))
+    _assert_attention_close(flash_attention.flash_attention(q, k, v),
+                            flash_attention.flash_attention_plain(q, k, v))
+
+
+def test_cuda_stream_ptr_is_current_stream(cuda):
+    """``_build.stream_ptr`` reads the raw handle of PyTorch's current
+    stream; it is the one ``torch.cuda.current_stream`` names, on the
+    default stream and on a side stream, so the kernels launch in order
+    with PyTorch's own work."""
+    assert _build.stream_ptr(cuda) == torch.cuda.current_stream(cuda).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(cuda) == side.cuda_stream != 0
+        assert _build.stream_ptr(torch.device("cuda", 0)) == side.cuda_stream
+    assert _build.stream_ptr(cuda) == torch.cuda.current_stream(cuda).cuda_stream
+
+
+def test_cuda_seg_launch_fills_buffers(cuda):
+    """``seg_launch`` into ``seg_buffers`` (the wrapper's own two steps, which
+    ``chip_smoke.py`` times) gives the plain version's bits and counts one
+    launch."""
+    rng = np.random.default_rng(3)
+    codes = torch.from_numpy(rng.integers(-2, 40, 3000).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(size=(3000, 2)).astype(np.float32))
+    partial, out = seg_aggregate.seg_buffers(37, vals.to(cuda))
+    before = _build.launch_counts().get("seg_aggregate", 0)
+    seg_aggregate.seg_launch(codes.to(cuda), vals.to(cuda), partial, out)
+    assert _build.launch_counts()["seg_aggregate"] == before + 1
+    want = seg_aggregate.seg_aggregate_plain(codes, vals, 37)
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))

@@ -33,7 +33,12 @@ itself and drives ``graftdb_torch``. Phases:
    executor (the aggregate kernel sums in float32), the batch-insert and
    segmented-sum kernels launched. Launch counts are reset before each of
    the two and read after it. The largest launch of each kernel is
-   recorded and replayed against its plain version, and timed;
+   recorded and replayed against its plain version, and timed. Over the
+   default legs the engine's calls that feed the fused chain and the
+   single-query lens probe (``TorchBackend.probe_chain``,
+   ``probe_visible``) are counted and timed on the host, beside the legs'
+   wall seconds; those two kernels also record their host time per call
+   (``enqueue_ms``) on the replay and on phase 3's inputs;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
    versions), in the default and the opt-in configuration, must give
    identical results, counters, backend stats and virtual clocks;
@@ -55,10 +60,15 @@ itself and drives ``graftdb_torch``. Phases:
    (``HGMMA``, ``HMMA``) and TMA loads in the library's SASS, and fails
    unless the bf16 kernel holds ``wgmma`` and every float32 instance holds
    TF32 ``HMMA`` (``mma.sync``) and spills nothing;
-7. the segmented sum's phase-3 calls and its main-path replay: the two
-   passes by device time from a ``torch.profiler`` trace, last, since a
-   trace leaves every later launch slower on the host, and the wrapper's
-   event mean again after the traces.
+7. the device time per call of the fused chain (its replay and phase 3's
+   two-stage chain with grants, filters and a sink) and of the lens probe
+   (its replay), by kernel, memset and copy; the segmented sum's phase-3
+   calls and its main-path replay: the two passes by device time; all
+   from ``torch.profiler`` traces, last, since a trace leaves every later
+   launch slower on the host; then the segmented sum's event mean again
+   after the traces. The four levels of the fused chain and the lens
+   probe (event mean, host time per call, device time, engine call) go
+   to ``launch_path`` in ``chip_smoke.json``.
 
 Comparisons are exact except for flash attention, which adds its
 products in another order than its plain version and the full-softmax
@@ -158,6 +168,19 @@ MAIN_KERNELS = ("fused_chain", "hash_probe_lens64", "hash_probe_lens_multi64", "
 OPTIN_KERNELS = ("hash_build_insert", "seg_aggregate")
 OPS_KERNELS = ("flash_attention", "linrec")
 OPTIN = dict(use_insert_kernel=True, use_agg_kernel=True)
+#: the kernels whose launch path this script measures at four levels: the
+#: wrapper's event mean, its host time per call, the device time per launch
+#: and the engine's own call (``launch_path`` in ``chip_smoke.json``)
+LAUNCH_PATH = ("fused_chain", "hash_probe_lens64")
+#: kernels timed over SEG_ITERS calls
+MEAN_200 = ("seg_aggregate",) + LAUNCH_PATH
+#: the engine's calls that feed them, timed on the host over the default
+#: legs, and two of the backend's steps inside them and its other probes:
+#: the probe table's upkeep and the entry-indexed mirrors'
+ENGINE_CALLS = ("probe_chain", "probe_visible", "_table_for", "_sync_mirrors")
+#: the replayed calls' event means in PR 15 (run 2 of its A/B call, NVIDIA
+#: H100 80GB HBM3, 700.00 W), kept beside this run's in the JSON file
+PR15_REPLAY_MS = {"fused_chain": 0.09520800113677978, "hash_probe_lens64": 0.022011199593544008}
 
 
 def log(*a):
@@ -217,9 +240,12 @@ def seg_entry_ms(codes, vals, n_groups):
 #: the segmented sum's calls whose passes the last phase times apart
 #: (``trace_seg_passes``): label, call and its ``index_add_`` twin
 SEG_TRACES = []
-#: calls per CUDA-event mean of the segmented sum, whose host-bound means
-#: vary from call to call
+#: calls per CUDA-event mean of the segmented sum, the fused chain and the
+#: single-query lens probe, whose host-bound means vary from call to call
 SEG_ITERS = 200
+#: the fused chain's and the single-query lens probe's calls whose device
+#: time the last phase reads from a profiler trace (``trace_launch_path``)
+LAUNCH_TRACES = []
 
 
 def seg_times(label, call, codes, vals, n_groups):
@@ -240,6 +266,16 @@ def seg_times(label, call, codes, vals, n_groups):
         "enqueue_ms": enqueue_ms(call, SEG_ITERS),
         "entry_ms": seg_entry_ms(codes, vals, n_groups),
     }
+
+
+def trace_launch_path(report):
+    """Last phase, beside B7's traces: each recorded B1 and B2 call by
+    device time per call from a profiler trace, by CUDA kernel, memset and
+    copy (level c of ``launch_path`` in ``chip_smoke.json``)."""
+    recs = report["launch_path"]["device_ms"] = {}
+    for label, call in LAUNCH_TRACES:
+        recs[label] = kernel_device_ms(call, 50)
+        log(f"{label}: device ms per call {recs[label]}")
 
 
 def trace_seg_passes(report):
@@ -500,7 +536,7 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
     ones = torch.ones_like(tk)
     slot_vis = torch.where(te >= 0, lo[te.clamp(min=0).to(torch.int64)], 0)
     all_mask = torch.full((1,), -1, dtype=torch.int32, device=dev)
-    lens_mask = t(np.array([1 << 5, 1 << 7], np.uint32).view(np.int32))
+    lens_mask = torch.from_numpy(np.array([1 << 5, 1 << 7], np.uint32).view(np.int32))  # host
 
     # chain: stage 0 probes host keys into the orders table; stage 1
     # gathers keys through stage 0's entries into a second table
@@ -630,10 +666,13 @@ def max_abs_err(name, got, want):
     return err
 
 
-def compare(name, args, timed=True, iters=20, label=None):
+def compare(name, args, timed=True, iters=20, label=None, trace=False):
     """Run a kernel and its plain version on the same card inputs; require
     exact equality; return error, times, bound and, where one PyTorch call
-    computes the same function, that call's time."""
+    computes the same function, that call's time. The fused chain and the
+    single-query lens probe also record their host time per call
+    (``enqueue_ms``) and, with ``trace``, have their device time read in the
+    last phase."""
     import torch
 
     kern, plain = kernel_pair(name)
@@ -654,8 +693,12 @@ def compare(name, args, timed=True, iters=20, label=None):
         rec["plain_on"] = "host"
         rec["bound_ms"], rec["bound_by"] = insert_bound(args[0], args[1], want[0])
         return rec
-    rec["ms"] = time_ms(lambda: kern(*args), SEG_ITERS if name == "seg_aggregate" else iters)
+    rec["ms"] = time_ms(lambda: kern(*args), SEG_ITERS if name in MEAN_200 else iters)
     rec["plain_ms"] = time_ms(lambda: plain(*args), max(2, iters // 4))
+    if name in LAUNCH_PATH:
+        rec["enqueue_ms"] = enqueue_ms(lambda: kern(*args), SEG_ITERS)
+        if trace:
+            LAUNCH_TRACES.append((label, lambda: kern(*args)))
     if name == "fused_chain":
         rec["bound_ms"], rec["bound_by"] = chain_bound(args[0], args[1], got[0])
     elif name == "seg_aggregate":
@@ -669,17 +712,34 @@ def compare(name, args, timed=True, iters=20, label=None):
 
 class Recorder:
     """Keeps the largest call of each kernel wrapper that the backend
-    makes (of the batch insert, the largest that built a servable table), so the main path's own inputs can be replayed after the legs.
-    The inputs are kept by reference, not copied, so the legs' wall times
-    carry no recording cost: the replay sees that call's shapes and keys,
-    and the mirrors as the backend left them (patched in place later)."""
+    makes (of the batch insert, the largest that built a servable table),
+    so the main path's own inputs can be replayed after the legs. Tables
+    and mirrors are kept by reference: the replay sees them as the backend
+    left them (patched in place later). The per-row inputs of the chain and
+    the keys of the lens probe are copied on the device when a larger call
+    comes, since the backend may stage them in buffers that later calls
+    overwrite.
+
+    It also times the engine's own calls that feed B1 and B2
+    (``TorchBackend.probe_chain`` and ``probe_visible``), and the probe
+    table's and the mirrors' upkeep (``_table_for``, ``_sync_mirrors``,
+    which those calls and the other probes run): their number and host
+    seconds, taken by ``engine_times``."""
 
     def __init__(self):
         import repro_torch.api.backends as backends
+        from repro_torch.kernels.fused_chain import input_kinds
 
         self.mod = backends
+        self.kinds = input_kinds
         self.calls = {}
         self.saved = {}
+        self.engine = {name: [0, 0.0] for name in ENGINE_CALLS}
+        self.methods = {}
+        for name in ENGINE_CALLS:
+            orig = getattr(backends.TorchBackend, name)
+            self.methods[name] = orig
+            setattr(backends.TorchBackend, name, self._timed(orig, self.engine[name]))
         for fn_name, name in (("hash_probe_lens", "hash_probe_lens"),
                               ("hash_probe_lens64", "hash_probe_lens64"),
                               ("hash_probe_lens_multi64", "hash_probe_lens_multi64"),
@@ -689,6 +749,18 @@ class Recorder:
             orig = getattr(backends, fn_name)
             self.saved[fn_name] = orig
             setattr(backends, fn_name, self._wrap(orig, name))
+
+    @staticmethod
+    def _timed(orig, acc):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t0
+
+        return call
 
     def _wrap(self, orig, name):
         def call(*args):
@@ -703,14 +775,34 @@ class Recorder:
                 size = args[0].shape[0]
             best = self.calls.get(name)
             if best is None or size > best[0]:
-                self.calls[name] = (size, (args[0], list(args[1])) if name == "fused_chain" else args)
+                if name == "fused_chain":
+                    spec, arrays = args
+                    kept = (spec, [a.clone() if k == "row" else a
+                                   for a, k in zip(arrays, self.kinds(spec))])
+                elif name == "hash_probe_lens64":
+                    kept = (args[0].clone(),) + tuple(args[1:])
+                else:
+                    kept = args
+                self.calls[name] = (size, kept)
             return out
 
         return call
 
+    def engine_times(self):
+        """Calls and host seconds of each timed engine call since the last
+        reading; the counts start again from 0."""
+        out = {}
+        for name, acc in self.engine.items():
+            out[name] = {"calls": acc[0], "seconds": acc[1],
+                         "ms_per_call": acc[1] / acc[0] * 1e3 if acc[0] else None}
+            acc[0], acc[1] = 0, 0.0
+        return out
+
     def restore(self):
         for fn_name, orig in self.saved.items():
             setattr(self.mod, fn_name, orig)
+        for name, orig in self.methods.items():
+            setattr(self.mod.TorchBackend, name, orig)
 
 
 # ---------------------------------------------------------------------------
@@ -870,12 +962,14 @@ def smoke(report):
     inputs = kernel_inputs(db)
     synth = {}
     for label, (kname, kin) in inputs.items():
-        rec = compare(kname, kin, label=label)
+        rec = compare(kname, kin, label=label, trace=label == "fused_chain_rich")
         synth[label] = rec
         lib = "" if rec["library_ms"] is None else f", index_add_ {rec['library_ms']:.4f} ms"
         ok = f" (ok {rec['ok']})" if "ok" in rec else ""
         host = (f"; launch on its buffers {rec['entry_ms']:.4f} ms, enqueue "
                 f"{rec['enqueue_ms']:.4f} ms" if "entry_ms" in rec else "")
+        if kname in LAUNCH_PATH:
+            host = f"; enqueue {rec['enqueue_ms']:.5f} ms"
         log(f"kernel {label}: equal to plain{ok}; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}{lib}){host}")
     a, b = (kernel_pair("seg_aggregate")[0](*inputs["seg_aggregate_g4096"][1]) for _ in range(2))
@@ -883,6 +977,9 @@ def smoke(report):
         raise AssertionError("seg_aggregate: two calls on the same inputs differ")
     log("kernel seg_aggregate: two calls give the same bits")
     report["kernels_sf_shapes"] = synth
+    report["launch_path_sf_shapes"] = {
+        label: {k: rec[k] for k in ("ms", "enqueue_ms", "bound_ms")}
+        for label, rec in synth.items() if inputs[label][0] in LAUNCH_PATH}
     del inputs
 
     # 4. the main path at the full scale: the default config, then opt-in
@@ -908,9 +1005,16 @@ def smoke(report):
     report["legs"], report["launches"] = {}, {}
     try:
         default_launches = run_legs(db, legs, MAIN_KERNELS, "default", report)
+        engine = recorder.engine_times()
         optin_launches = run_legs(db, optin_leg, OPTIN_KERNELS, "opt-in", report)
     finally:
         recorder.restore()
+    legs_wall = sum(report["legs"][label]["wall_s"] for label, *_ in legs)
+    report["launch_path"] = {"engine": engine, "default_legs_wall_s": legs_wall,
+                             "replay": {}, "pr15_replay_ms": PR15_REPLAY_MS}
+    for name, rec in engine.items():
+        log(f"engine {name} over the default legs: {rec['calls']} calls, {rec['seconds']:.4f} s "
+            f"on the host ({rec['ms_per_call']} ms a call); legs' wall {legs_wall:.4f} s")
 
     rows = []
     for kname, (src, replaces) in KERNELS.items():
@@ -919,7 +1023,12 @@ def smoke(report):
         if kname in recorder.calls:
             size, kin = recorder.calls[kname]
             where = f"main-path replay {kname} (size {size})"
-            rec = compare(kname, kin, label=where)
+            rec = compare(kname, kin, label=where, trace=kname in LAUNCH_PATH)
+            if kname in LAUNCH_PATH:
+                report["launch_path"]["replay"][kname] = {
+                    k: rec[k] for k in ("ms", "enqueue_ms", "bound_ms")}
+                log(f"{where}: event mean {rec['ms']:.5f} ms, enqueue {rec['enqueue_ms']:.5f} ms "
+                    f"(PR 15's event mean {PR15_REPLAY_MS[kname]} ms)")
         else:  # on no engine path: its phase-3 numbers
             size, rec = None, synth[kname]
             where = f"kernel {kname} (phase 3)"
@@ -1186,6 +1295,7 @@ def main():
 
     rows = smoke(report)
     rows += kernel_ops(report)
+    trace_launch_path(report)
     trace_seg_passes(report)
 
     OUT_DIR.mkdir(exist_ok=True)

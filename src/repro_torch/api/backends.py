@@ -117,6 +117,68 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 
 
+class _Staging:
+    """The per-row inputs of one kernel call, staged through one host buffer
+    into one device buffer, and the call's output brought back into a
+    second host buffer (DESIGN.md §13). On the card both host buffers are
+    pinned, so the upload and the fetch are ``non_blocking`` copies and the
+    call waits once, in :meth:`fetch`; with ``device="cpu"`` the same code
+    runs on ordinary tensors. The buffers grow to the largest call.
+
+    A call runs ``begin(n_rows, npad)``, then ``row(values, fill)`` once
+    per row input (each writes its values and padding into the host buffer
+    in place, casting to int32 on the way, and returns that row's view of
+    the device buffer), then ``upload()`` (one copy), the launch, and
+    ``fetch(out)``. The host buffer may only be rewritten after that wait,
+    which the next ``begin`` can rely on, since every call that uploads
+    also fetches."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.host = self.host_np = self.dev = self.out = None
+        self.npad = self.used = 0
+
+    def _grow(self, buf, words, on_device):
+        if buf is not None and buf.numel() >= words:
+            return buf
+        size = max(words, 2 * buf.numel() if buf is not None else 0)
+        if on_device:
+            return torch.empty(size, dtype=torch.int32, device=self.device)
+        return torch.empty(size, dtype=torch.int32, pin_memory=self.pinned)
+
+    def begin(self, n_rows: int, npad: int) -> None:
+        words = n_rows * npad
+        host = self._grow(self.host, words, False)
+        if host is not self.host:
+            self.host, self.host_np = host, host.numpy()
+        self.dev = self._grow(self.dev, words, True)
+        self.npad, self.used = npad, 0
+
+    def row(self, values: np.ndarray, fill: int = 0) -> torch.Tensor:
+        off, n = self.used, len(values)
+        self.used += self.npad
+        np.copyto(self.host_np[off : off + n], values, casting="unsafe")
+        self.host_np[off + n : self.used] = fill
+        return self.dev[off : self.used]
+
+    def upload(self) -> None:
+        self.dev[: self.used].copy_(self.host[: self.used], non_blocking=True)
+
+    def fetch(self, out: torch.Tensor) -> np.ndarray:
+        """``out`` (int32) in host memory after the call's one wait; a
+        view that the next fetch overwrites."""
+        n = out.numel()
+        self.out = self._grow(self.out, n, False)
+        self.out[:n].copy_(out, non_blocking=True)
+        self.wait()
+        return self.out[:n].numpy()
+
+    def wait(self) -> None:
+        if self.pinned:
+            torch.cuda.synchronize(self.device)
+
+
 class _ProbeTable:
     """Device-resident mirror of one state's SoA (DESIGN.md §13).
 
@@ -241,6 +303,7 @@ class TorchBackend:
             weakref.WeakKeyDictionary()
         )
         self._qmask = None  # constant all-ones lens mask, built lazily
+        self._staging = _Staging(self.device)  # row inputs of chain and lens probes
         self.kernel_probes = 0
         self.kernel_lens_probes = 0
         self.kernel_multi_probes = 0
@@ -328,16 +391,14 @@ class TorchBackend:
             return None
         ent = self._tables[state]
         self._sync_mirrors(ent, state)
-        mask = np.uint64(1) << np.uint64(slot)
-        mlo, mhi = split_words(np.array([mask], dtype=np.uint64))
-        found = hash_probe_lens64(
-            self._to_dev(keycodes),
-            ent.jkeys,
-            ent.jentry,
-            ent.jvlo,
-            ent.jvhi,
-            self._to_dev(np.array([mlo[0], mhi[0]], dtype=np.uint32)),
-        ).cpu().numpy()
+        stage = self._staging
+        stage.begin(1, len(keycodes))
+        keys = stage.row(keycodes)  # int32 in the copy into the staging buffer
+        stage.upload()
+        bit = 1 << slot  # the lens mask, by value
+        found = stage.fetch(hash_probe_lens64(
+            keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi, (bit & 0xFFFFFFFF, bit >> 32)
+        ))
         self.kernel_probes += 1
         self.kernel_lens_probes += 1
         probe_idx = np.flatnonzero(found >= 0).astype(np.int64)
@@ -448,16 +509,19 @@ class TorchBackend:
         npad = 8
         while npad < n:
             npad *= 2
-
-        def pad_row(a, fill=0):
-            if len(a) < npad:
-                a = np.concatenate(
-                    [a, np.full(npad - len(a), fill, dtype=a.dtype)]
-                )
-            return self._to_dev(a)
-
-        blo, bhi = split_words(bits)
-        arrays = [pad_row(blo), pad_row(bhi)]
+        # every row input goes through the staging buffers, padded in place
+        # (dead rows: zero words, EMPTY keys): the ownership halves, one key
+        # array per host-key stage, two per host filter column
+        n_rows = 2
+        for st in stages:
+            n_rows += st["key"][0] == "host"
+            f = st["filter"]
+            if f is not None:
+                n_rows += 2 * sum(ref[0] == "host" for ref in f["attrs"])
+        stage = self._staging
+        stage.begin(n_rows, npad)
+        halves = np.ascontiguousarray(bits, dtype="<u8").view("<u4")
+        arrays = [stage.row(halves[0::2]), stage.row(halves[1::2])]
         spec_stages = []
         dev = cplan["_dev"]
         for si, st in enumerate(stages):
@@ -469,7 +533,7 @@ class TorchBackend:
                     self.note_fallback("keyrange", counters)
                     return None
                 key_mode = -1
-                arrays.append(pad_row(kc.astype(np.int32), EMPTY))
+                arrays.append(stage.row(kc, EMPTY))
             else:
                 key_mode = key[1]
                 oent = self._tables[stages[key_mode]["state"]]
@@ -501,7 +565,7 @@ class TorchBackend:
                 for ref in f["attrs"]:
                     if ref[0] == "host":
                         vh, vl = total_order_u32(np.asarray(cols[ref[1]], dtype=np.float64))
-                        arrays += [pad_row(vh), pad_row(vl)]
+                        arrays += [stage.row(vh), stage.row(vl)]
                         srcs.append(-1)
                     else:
                         rec = self._tables[stages[ref[1]]["state"]].ords[ref[2]]
@@ -525,8 +589,9 @@ class TorchBackend:
                 dev["sink"] = sp
             arrays += list(sp)
         spec = (tuple(spec_stages), sink is not None)
-        # one device-to-host copy brings every output back
-        flat = chain_launch(spec, arrays).cpu().numpy()
+        # one copy up, the launch, one copy down, one wait
+        stage.upload()
+        flat = stage.fetch(chain_launch(spec, arrays))
         out = split_outputs(spec, npad, flat)
         n_stages = len(stages)
 

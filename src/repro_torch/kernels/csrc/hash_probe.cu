@@ -4,7 +4,8 @@
 // Replace the Pallas TPU kernels of src/repro/kernels/hash_probe.py:
 //   hp_probe_lens     <- _probe_kernel          (hash_probe_lens)
 //   hp_probe_multi    <- _probe_multi_kernel    (hash_probe_lens_multi)
-//   hp_probe_lens64   <- _probe_lens64_kernel   (hash_probe_lens64)
+//   hp_probe_lens64   <- _probe_lens64_kernel   (hash_probe_lens64; its note
+//                        says how it differs from the others)
 //   hp_probe_multi64  <- _probe_multi64_kernel  (hash_probe_lens_multi64)
 //   hp_build_insert   <- _insert_kernel         (hash_build_insert)
 //
@@ -136,26 +137,32 @@ __global__ void probe_multi_kernel(const int* __restrict__ keys, long long n,
     out_vis[i] = vis;
 }
 
-__global__ void probe_lens64_kernel(const int* __restrict__ keys, long long n,
-                                    const int* __restrict__ tkeys,
-                                    const int* __restrict__ tentry, long long cap,
-                                    const uint32_t* __restrict__ evlo,
-                                    const uint32_t* __restrict__ evhi,
-                                    long long n_entries,
-                                    const uint32_t* __restrict__ qmask,
-                                    int* __restrict__ out) {
+// B2, the single-query probe of probe_visible. Its work is a chain of four
+// dependent gathers per key (key, slot keys, entry id, lens word): 3 us of
+// device time at 65,536 keys on an H100 80GB HBM3 at 700 W, against 25 us
+// a call by CUDA events, the rest being the host's. So the 64-bit query
+// mask comes by value (two kernel parameters, no device copy of 8 bytes
+// before each call), and the loads go through the read-only path. Tried
+// on the card and not kept, since none was faster: 128-thread blocks
+// (512 blocks over the 132 SMs), two keys per thread with their first
+// gathers issued together.
+__global__ void __launch_bounds__(BLOCK)
+probe_lens64_kernel(const int* __restrict__ keys, long long n,
+                    const int* __restrict__ tkeys, const int* __restrict__ tentry,
+                    long long cap, const uint32_t* __restrict__ evlo,
+                    const uint32_t* __restrict__ evhi, long long n_entries,
+                    uint32_t qlo, uint32_t qhi, int* __restrict__ out) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const int key = keys[i];
+    const int key = __ldg(keys + i);
     const uint32_t mask = (uint32_t)(cap - 1);
-    const uint32_t qlo = qmask[0], qhi = qmask[1];
     uint32_t pos = home_slot(key, mask);
     int found = -1;
     for (int h = 0; h < MAX_PROBE; ++h) {
-        const int sk = tkeys[pos];
+        const int sk = __ldg(tkeys + pos);
         if (sk == key) {
-            const long long e = wrap(tentry[pos], n_entries);
-            if ((evlo[e] & qlo) | (evhi[e] & qhi)) found = (int)pos;
+            const long long e = wrap(__ldg(tentry + pos), n_entries);
+            if ((__ldg(evlo + e) & qlo) | (__ldg(evhi + e) & qhi)) found = (int)pos;
             break;
         }
         if (sk == EMPTY_KEY) break;
@@ -429,14 +436,14 @@ extern "C" int hp_probe_multi(const void* keys, const void* tkeys, const void* t
 }
 
 extern "C" int hp_probe_lens64(const void* keys, const void* tkeys, const void* tentry,
-                               const void* evlo, const void* evhi, const void* qmask,
-                               void* out, long long n, long long cap, long long n_entries,
-                               void* stream) {
+                               const void* evlo, const void* evhi, void* out, long long n,
+                               long long cap, long long n_entries, long long qlo,
+                               long long qhi, void* stream) {
     if (n > 0)
         probe_lens64_kernel<<<grid_of(n), BLOCK, 0, (cudaStream_t)stream>>>(
             (const int*)keys, n, (const int*)tkeys, (const int*)tentry, cap,
-            (const uint32_t*)evlo, (const uint32_t*)evhi, n_entries,
-            (const uint32_t*)qmask, (int*)out);
+            (const uint32_t*)evlo, (const uint32_t*)evhi, n_entries, (uint32_t)qlo,
+            (uint32_t)qhi, (int*)out);
     return (int)cudaGetLastError();
 }
 

@@ -32,10 +32,15 @@ takes the exact arrays the Pallas launch takes:
 ``chain_launch`` runs the CUDA kernel for CUDA tensors and ``chain_plain``
 — the same function in plain PyTorch — for CPU tensors. Both return one
 flat int32 buffer; ``split_outputs`` cuts it into the reference's output
-tuple.
+tuple. The kernel takes its arguments by value: ``chain_args`` lays out
+the int64 block (descriptor, input and output pointers) in host memory,
+and the C entry launches with it as a kernel parameter, so a launch
+copies nothing to the device and waits for nothing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -50,14 +55,20 @@ __all__ = [
     "chain_descriptor",
     "output_sizes",
     "split_outputs",
+    "chain_args",
     "chain_plain",
     "chain_launch",
 ]
 
 _SIGN = np.uint64(0x8000000000000000)
 _LO32 = 0xFFFFFFFF
-#: CUDA block size of the chain kernel (rows per block)
-BLOCK_ROWS = 256
+#: the most int64 words and stages an argument block may hold: the kernel
+#: parameter struct's size (``FC_MAX_WORDS``, ``FC_MAX_STAGES`` in
+#: ``csrc/fused_chain.cu``, which says how they were bounded)
+MAX_ARG_WORDS = 4032
+MAX_STAGES = 32
+#: words of one [8, 256] byte-lane translation half-table
+TABLE_WORDS = 2048
 
 
 def total_order_u32(vals: np.ndarray):
@@ -199,6 +210,73 @@ def split_outputs(spec, n, flat):
     return tuple(out)
 
 
+class _Layout:
+    """What a launch needs of a spec, worked out once per spec: the input
+    count, the indices of the row inputs and of the translation tables,
+    the block's static head (``[D, n_in] + descriptor``, table capacities
+    0) with the positions the capacities go to and the inputs they come
+    from, and each output's offset in the flat buffer as ``a n + b``."""
+
+    __slots__ = ("n_in", "rows", "tables", "head", "caps", "outs", "out_words")
+
+    def __init__(self, spec):
+        stages, sink = spec
+        if len(stages) > MAX_STAGES:
+            raise ValueError(f"a chain takes at most {MAX_STAGES} stages, got {len(stages)}")
+        kinds = input_kinds(spec)
+        self.n_in = len(kinds)
+        self.rows = tuple(i for i, k in enumerate(kinds) if k == "row")
+        desc = [len(stages), int(bool(sink))]
+        caps, tables, pi = [], [], 2
+        for key_mode, n_grants, grant_attrs, filt in stages:
+            srcs = list(filt[1]) if filt is not None else []
+            caps.append((2 + len(desc) + 3, pi + 1))  # table_capacity <- tkeys
+            desc += [key_mode, n_grants, grant_attrs, 0,
+                     filt[0] if filt is not None else -1, len(srcs)] + srcs
+            tables += [pi + 5, pi + 6]
+            pi += 7 + (7 + 2 * grant_attrs if n_grants else 0)
+            pi += 2 * len(srcs) + 4 if filt is not None else 0
+        if sink:
+            tables += [pi, pi + 1, pi + 2, pi + 3]
+        self.head = [len(desc), self.n_in] + desc
+        self.caps = tuple(caps)
+        self.tables = tuple(tables)
+        outs, a, b = [], 0, 0
+        for s1, s2 in zip(output_sizes(spec, 1), output_sizes(spec, 2)):
+            outs.append((a, b))  # each size is (s2 - s1) n + (2 s1 - s2)
+            a, b = a + s2 - s1, b + 2 * s1 - s2
+        self.outs = tuple(outs)
+        self.out_words = (a, b)
+        words = len(self.head) + self.n_in + len(outs)
+        if words > MAX_ARG_WORDS:
+            raise ValueError(
+                f"the chain's argument block takes {words} words, more than the "
+                f"kernel's {MAX_ARG_WORDS}"
+            )
+
+
+@functools.lru_cache(maxsize=512)
+def _layout(spec) -> _Layout:
+    return _Layout(spec)
+
+
+def chain_args(spec, arrays, flat):
+    """The kernel's by-value argument block, int64 in host memory:
+    ``[D, n_in] + chain_descriptor(spec, arrays)``, then the data pointers
+    of ``arrays`` (in :func:`input_kinds` order) and of each output's
+    place in ``flat`` (in :func:`output_sizes` order). Raises when the
+    spec does not fit the kernel's parameter struct."""
+    lay = _layout(spec)
+    n = arrays[0].shape[0]
+    block = list(lay.head)
+    for pos, src in lay.caps:
+        block[pos] = arrays[src].shape[0]
+    base = flat.data_ptr()
+    block += [a.data_ptr() for a in arrays]
+    block += [base + 4 * (a * n + b) for a, b in lay.outs]
+    return np.array(block, dtype=np.int64)
+
+
 def _u(x):
     """uint32 bits held in int32 -> the unsigned value in int64."""
     return x.to(torch.int64) & _LO32
@@ -334,22 +412,34 @@ def chain_plain(spec, arrays):
     return torch.cat([o.to(torch.int32) for o in out])
 
 
-def _check_inputs(spec, arrays):
-    kinds = input_kinds(spec)
-    if len(arrays) != len(kinds):
-        raise ValueError(f"chain spec takes {len(kinds)} inputs, got {len(arrays)}")
-    dev = arrays[0].device
-    n = arrays[0].shape[0]
+def _check_inputs(lay, arrays):
+    """The contract's guard, in one pass: every input a contiguous int32
+    tensor on the first one's device, the rows of one power-of-two length
+    >= 8, each translation table [8, 256]."""
+    if len(arrays) != lay.n_in:
+        raise ValueError(f"chain spec takes {lay.n_in} inputs, got {len(arrays)}")
+    first = arrays[0]
+    n = first.shape[0]
     if n < 8 or n & (n - 1):
         raise ValueError(f"row arrays must have a power-of-two length >= 8, got {n}")
-    for kind, a in zip(kinds, arrays):
-        if a.device != dev:
-            raise ValueError(f"chain inputs must all be on {dev}, got {a.device}")
-        if a.dtype != torch.int32 or not a.is_contiguous():
+    where = first.get_device()
+    for a in arrays:
+        if a.dtype is not torch.int32 or not a.is_contiguous():
             raise TypeError("chain inputs are contiguous int32 tensors")
-        if kind == "row" and a.shape[0] != n:
-            raise ValueError(f"row inputs must all have length {n}, got {a.shape[0]}")
-    return dev, n
+        if a.get_device() != where:
+            raise ValueError(f"chain inputs must all be on {first.device}, got {a.device}")
+    for i in lay.rows:
+        if arrays[i].shape[0] != n:
+            raise ValueError(f"row inputs must all have length {n}, got {arrays[i].shape[0]}")
+    for i in lay.tables:
+        if arrays[i].numel() != TABLE_WORDS:
+            raise ValueError(f"translation tables are [8, 256], got {tuple(arrays[i].shape)}")
+    return first.device, n
+
+
+@functools.cache
+def _fc_chain():
+    return _build.bind("fused_chain", "fc_chain", 1, 2, 1)
 
 
 def chain_launch(spec, arrays):
@@ -360,24 +450,18 @@ def chain_launch(spec, arrays):
     power-of-two length >= 8 (dead padding rows carry zero ownership words
     and EMPTY keys, so they contribute to no output). Returns the flat
     int32 output buffer (:func:`split_outputs`). ``stats[s]`` is
-    ``(alive_in, matched, matched_visible)`` for stage s."""
-    dev, n = _check_inputs(spec, arrays)
+    ``(alive_in, matched, matched_visible)`` for stage s. A spec whose
+    argument block does not fit the kernel's parameter struct raises, on
+    either device. On the card the call neither copies nor waits: the C
+    entry zeroes the counters and launches on the current stream."""
+    lay = _layout(spec)
+    dev, n = _check_inputs(lay, arrays)
     if dev.type == "cpu":
         return chain_plain(spec, arrays)
-    sizes = output_sizes(spec, n)
-    flat = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    offs = np.cumsum([0] + sizes[:-1])
-    n_stages = len(spec[0])
-    acc = offs[2 + n_stages]
-    flat[acc : acc + 3 * n_stages + 64].zero_()  # stats + slots accumulate
-    desc = chain_descriptor(spec, arrays)
-    base = flat.data_ptr()
-    ptrs = [a.data_ptr() for a in arrays] + [base + 4 * int(o) for o in offs]
-    block = torch.tensor(
-        [len(desc), len(arrays)] + desc + ptrs, dtype=torch.int64
-    ).to(dev)
-    fn = _build.bind("fused_chain", "fc_chain", 1, 2, 1)
-    err = fn(block.data_ptr(), n, min(BLOCK_ROWS, n), _build.stream_ptr(dev))
+    a, b = lay.out_words
+    flat = torch.empty(a * n + b, dtype=torch.int32, device=dev)
+    block = chain_args(spec, arrays, flat)
+    err = _fc_chain()(block.ctypes.data, len(block), n, _build.stream_ptr(dev))
     _build.check(err, "fused_chain")
     _build.count_launch("fused_chain")
     return flat

@@ -28,6 +28,8 @@ CPU tensors; it never falls back from one to the other.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -161,13 +163,33 @@ def hash_probe_lens_multi(probe_keys, table_keys, table_vis):
 
 
 # -- B2: entry-indexed 64-bit lens, one query ----------------------------------
+def mask_words(query_mask):
+    """The (lo, hi) halves of a 64-bit lens mask held on the host — a CPU
+    int32 ``[2]`` tensor or a ``(lo, hi)`` pair of integers — as unsigned
+    32-bit Python ints. A mask on the card is refused: reading it would
+    wait for the card."""
+    if isinstance(query_mask, torch.Tensor):
+        if query_mask.device.type != "cpu" or query_mask.dtype != torch.int32 \
+                or tuple(query_mask.shape) != (2,):
+            raise TypeError("query_mask is a CPU int32 [2] tensor or a (lo, hi) pair, got "
+                            f"{query_mask.dtype} {tuple(query_mask.shape)} on {query_mask.device}")
+        query_mask = query_mask.tolist()
+    lo, hi = query_mask
+    return int(lo) & _LO32, int(hi) & _LO32
+
+
+def _signed(word):
+    """An unsigned 32-bit value as the int32 with the same bits."""
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
 def hash_probe_lens64_plain(probe_keys, table_keys, table_entry, evis_lo, evis_hi, query_mask):
     keys = probe_keys.to(torch.int64)
     cap = table_keys.shape[0]
     pos = _hash(probe_keys, cap)
     found = torch.full(keys.shape, -1, dtype=torch.int64, device=keys.device)
     done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
-    qlo, qhi = query_mask[0], query_mask[1]
+    qlo, qhi = (_signed(w) for w in mask_words(query_mask))
     for _ in range(MAX_PROBE):
         slot_keys = table_keys[pos]
         hit = (slot_keys == keys) & ~done
@@ -180,26 +202,31 @@ def hash_probe_lens64_plain(probe_keys, table_keys, table_entry, evis_lo, evis_h
     return found.to(torch.int32)
 
 
+@functools.cache
+def _hp_probe_lens64():
+    return _build.bind("hash_probe", "hp_probe_lens64", 6, 5, 1)
+
+
 def hash_probe_lens64(probe_keys, table_keys, table_entry, evis_lo, evis_hi, query_mask):
     """Single-query fused-lens probe over the full 64-slot space: the
     visibility words are entry-indexed (lo, hi) halves, so any slot 0..63
     resolves in-kernel and table rebuilds leave the mirrors untouched.
-    ``query_mask`` is the (lo, hi) lens mask, int32 ``[2]``. Returns the
+    ``query_mask`` is the (lo, hi) lens mask held on the host
+    (:func:`mask_words`); the kernel takes it by value. Returns the
     matched slot per key (-1 = no visible match), int32 ``[N]``."""
     name = "hash_probe_lens64"
-    _check(name, probe_keys.device, probe_keys, table_keys, table_entry,
-           evis_lo, evis_hi, query_mask)
+    qlo, qhi = mask_words(query_mask)
+    _check(name, probe_keys.device, probe_keys, table_keys, table_entry, evis_lo, evis_hi)
     _check_cap(name, table_keys.shape[0])
     if probe_keys.device.type == "cpu":
         return hash_probe_lens64_plain(
-            probe_keys, table_keys, table_entry, evis_lo, evis_hi, query_mask
+            probe_keys, table_keys, table_entry, evis_lo, evis_hi, (qlo, qhi)
         )
     out = torch.empty_like(probe_keys)
-    fn = _build.bind("hash_probe", "hp_probe_lens64", 7, 3, 1)
-    err = fn(
+    err = _hp_probe_lens64()(
         probe_keys.data_ptr(), table_keys.data_ptr(), table_entry.data_ptr(),
-        evis_lo.data_ptr(), evis_hi.data_ptr(), query_mask.data_ptr(), out.data_ptr(),
-        probe_keys.shape[0], table_keys.shape[0], evis_lo.shape[0],
+        evis_lo.data_ptr(), evis_hi.data_ptr(), out.data_ptr(),
+        probe_keys.shape[0], table_keys.shape[0], evis_lo.shape[0], qlo, qhi,
         _build.stream_ptr(probe_keys.device),
     )
     _build.check(err, name)

@@ -101,7 +101,7 @@ def test_cuda_probes_match_plain(cuda, case):
     c = [_t(a) for a in arrays]
     got = hash_probe.hash_probe_lens(k, tk, tv, m[:1])
     assert torch.equal(got.cpu(), hash_probe.hash_probe_lens_plain(c[0], c[1], c[2], c[6][:1]))
-    got = hash_probe.hash_probe_lens64(k, tk, te, lo, hi, m)
+    got = hash_probe.hash_probe_lens64(k, tk, te, lo, hi, c[6])  # the mask on the host
     want = hash_probe.hash_probe_lens64_plain(c[0], c[1], c[3], c[4], c[5], c[6])
     assert torch.equal(got.cpu(), want)
     got = hash_probe.hash_probe_lens_multi64(k, tk, te, lo, hi)
@@ -116,11 +116,13 @@ SPECIALS = np.array(
 )
 
 
-def _chain_inputs(seed, n=4096, n_e=3000):
-    """Two stages (host keys, then keys gathered through stage 0's
-    entries), each with compiled grants and an interval filter over a host
-    and an entry-indexed column, ending in a build sink; float operands
-    drawn from ``SPECIALS``."""
+def _chain_inputs(seed, n=4096, n_e=3000, n_stages=2, lenient=False):
+    """``n_stages`` stages (host keys, then keys gathered through the
+    previous stage's entries), each with compiled grants and an interval
+    filter over a host and an entry-indexed column, ending in a build sink;
+    float operands drawn from ``SPECIALS``. ``lenient`` makes every key hit
+    and leaves every filter attr unconstrained, so rows live through a long
+    chain."""
     rng = np.random.default_rng(seed)
 
     def enc(vals):
@@ -137,15 +139,16 @@ def _chain_inputs(seed, n=4096, n_e=3000):
     bits_lo[dead] = 0
     bits_hi[dead] = 0
     arrays, stages = [bits_lo, bits_hi], []
-    for s in range(2):
+    for s in range(n_stages):
         keys = rng.choice(1 << 22, n_e, replace=False).astype(np.int32)
         tk, te = _table(keys)
+        hit = 1.0 if lenient else 0.7 if s == 0 else 0.8
         if s == 0:
             hits = keys[rng.integers(0, n_e, n)]
-            arrays.append(np.where(rng.random(n) < 0.7, hits, rng.integers(1 << 23, 1 << 24, n))
+            arrays.append(np.where(rng.random(n) < hit, hits, rng.integers(1 << 23, 1 << 24, n))
                           .astype(np.int32))
         else:
-            arrays.append(np.where(rng.random(n_e) < 0.8, keys[rng.integers(0, n_e, n_e)],
+            arrays.append(np.where(rng.random(n_e) < hit, keys[rng.integers(0, n_e, n_e)],
                                    1 << 25).astype(np.int32))
         arrays += [tk, te, _words(rng, n_e), _words(rng, n_e), _words(rng, 8, 256),
                    _words(rng, 8, 256)]
@@ -156,8 +159,9 @@ def _chain_inputs(seed, n=4096, n_e=3000):
         srcs = (-1, s)
         arrays += enc(rng.choice(SPECIALS, n)) + enc(rng.choice(SPECIALS, n_e))
         flo, fhi = bounds((3, 2))
-        arrays += [flo, fhi, rng.integers(0, 2, (3, 2)).astype(np.int32), _words(rng, 3, 2)]
-        stages.append((-1 if s == 0 else 0, 2, 2, (3, srcs)))
+        fcon = rng.integers(0, 2, (3, 2)).astype(np.int32) * (not lenient)
+        arrays += [flo, fhi, fcon, _words(rng, 3, 2)]
+        stages.append((-1 if s == 0 else s - 1, 2, 2, (3, srcs)))
     arrays += [_words(rng, 8, 256) for _ in range(4)]
     return (tuple(stages), True), arrays
 
@@ -173,22 +177,126 @@ def test_cuda_chain_matches_plain(cuda, seed):
     assert int(stats[:, 1].sum()) > 0  # rows matched
 
 
-@pytest.mark.parametrize("n", [8, 128, 256, 65_536])
+@pytest.mark.parametrize("n", [8, 16, 128, 256, 512, 4096, 65_536, 1 << 17])
 def test_cuda_chain_row_counts(cuda, n):
-    """Power-of-two row counts below, at and above one block."""
+    """Power-of-two row counts below, at and above one 256-row tile, up to
+    2^17 rows, where the persistent grid (as many blocks as the card holds
+    at once) strides over 512 tiles."""
     spec, arrays = _chain_inputs(5, n=n, n_e=500)
     want = fused_chain.chain_plain(spec, [_t(a) for a in arrays])
     got = fused_chain.chain_launch(spec, [_t(a, cuda) for a in arrays])
     assert torch.equal(got.cpu(), want)
 
 
+def test_cuda_chain_most_stages(cuda):
+    """A spec of ``MAX_STAGES`` stages with grants, filters and a sink,
+    which launches the kernel's large parameter struct."""
+    spec, arrays = _chain_inputs(6, n=2048, n_e=400, n_stages=fused_chain.MAX_STAGES,
+                                 lenient=True)
+    want = fused_chain.chain_plain(spec, [_t(a) for a in arrays])
+    got = fused_chain.chain_launch(spec, [_t(a, cuda) for a in arrays])
+    assert torch.equal(got.cpu(), want)
+    stats = fused_chain.split_outputs(spec, 2048, want)[2 + len(spec[0])]
+    assert int(stats[-1, 1]) > 0  # rows match at the last stage, past the staged tables
+
+
+@pytest.mark.parametrize("slot", [0, 31, 32, 63])
+def test_cuda_probe_lens64_mask_slots(cuda, slot):
+    """The lens mask by value, on each half's first and last slot, as a
+    (lo, hi) pair and as a CPU tensor."""
+    probe, tk, _, te, lo, hi, _ = _probe_inputs("zero_vis", seed=slot)
+    bit = 1 << slot
+    pair = (bit & 0xFFFFFFFF, bit >> 32)
+    want = hash_probe.hash_probe_lens64_plain(_t(probe), _t(tk), _t(te), _t(lo), _t(hi), pair)
+    args = [_t(a, cuda) for a in (probe, tk, te, lo, hi)]
+    for mask in (pair, _t(np.array(pair, np.uint32))):
+        assert torch.equal(hash_probe.hash_probe_lens64(*args, mask).cpu(), want)
+    assert int((want >= 0).sum()) > 0 and int((want < 0).sum()) > 0
+
+
+def test_cuda_launch_path_does_not_synchronize(cuda):
+    """Neither wrapper waits for the card: both run under
+    ``set_sync_debug_mode("error")``, which raises on any call that would."""
+    spec, arrays = _chain_inputs(9, n=4096, n_e=500)
+    chain_in = [_t(a, cuda) for a in arrays]
+    probe, tk, _, te, lo, hi, mask = _probe_inputs("misses")
+    probe_in = [_t(a, cuda) for a in (probe, tk, te, lo, hi)]
+    pair = tuple(int(w) for w in mask)
+    fused_chain.chain_launch(spec, chain_in)  # builds and binds first
+    hash_probe.hash_probe_lens64(*probe_in, pair)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_chain = fused_chain.chain_launch(spec, chain_in)
+        got_probe = hash_probe.hash_probe_lens64(*probe_in, pair)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got_chain.cpu(), fused_chain.chain_plain(spec, [_t(a) for a in arrays]))
+    want = hash_probe.hash_probe_lens64_plain(*(_t(a) for a in (probe, tk, te, lo, hi)), pair)
+    assert torch.equal(got_probe.cpu(), want)
+
+
+@pytest.mark.parametrize("member_major", [True, False])
+def test_cuda_backend_calls_wait_once(cuda, member_major):
+    """Each chain call (``member_major``) or single-query lens probe of a
+    session's backend, made again at once on its own arguments, waits
+    once: everything but its one wait runs under
+    ``set_sync_debug_mode("error")``, and the wait is counted. The first
+    call brings the mirrors and buffers up to date; the second gives its
+    result."""
+    import graftdb_torch
+    from repro_torch.api.backends import TorchBackend
+    from repro_torch.relational import queries, tpch
+
+    db = tpch.get_database(0.01, seed=7)
+    rng = np.random.default_rng(7)
+    qs = [queries.sample_query(db, rng, arrival=0.01 * i) for i in range(6)]
+    backend = TorchBackend(device="cuda")
+    name = "probe_chain" if member_major else "probe_visible"
+    orig, stage, waits = getattr(backend, name), backend._staging, []
+
+    def wait():
+        waits[-1] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            torch.cuda.synchronize(cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def twice(*args, **kw):
+        want = orig(*args, **kw)
+        if want is None:
+            return want
+        waits.append(0)
+        stage.wait = wait
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = orig(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del stage.wait
+        pairs = ([(got[k], want[k]) for k in want if k != "entries"]
+                 + list(zip(got["entries"], want["entries"])) if member_major
+                 else zip(got, want))
+        for g, w in pairs:
+            np.testing.assert_array_equal(g, w)
+        return want
+
+    setattr(backend, name, twice)
+    session = graftdb_torch.connect(db, graftdb_torch.EngineConfig(
+        backend=backend, mode="graft", member_major=member_major))
+    session.submit_all(qs)
+    session.run()
+    assert waits and waits == [1] * len(waits), waits
+
+
 def test_cuda_wrappers_count_launches(cuda):
     arrays = _probe_inputs("misses")
     k, tk, tv, te, lo, hi, m = (_t(a, cuda) for a in arrays)
-    before = _build.launch_counts().get("hash_probe_lens64", 0)
-    hash_probe.hash_probe_lens64(k, tk, te, lo, hi, m)
-    assert _build.launch_counts()["hash_probe_lens64"] == before + 1
     c = [_t(a) for a in arrays]
+    before = _build.launch_counts().get("hash_probe_lens64", 0)
+    hash_probe.hash_probe_lens64(k, tk, te, lo, hi, c[6])
+    assert _build.launch_counts()["hash_probe_lens64"] == before + 1
     hash_probe.hash_probe_lens64(c[0], c[1], c[3], c[4], c[5], c[6])  # plain: not counted
     assert _build.launch_counts()["hash_probe_lens64"] == before + 1
 

@@ -131,8 +131,8 @@ def test_probe_lens64_matches_reference(case):
     want = np.asarray(
         ref_hp.hash_probe_lens64(pk, tk, te, evlo, evhi, mask, interpret=True)
     )
-    got = hash_probe.hash_probe_lens64(
-        _t(pk), _t(tk), _t(te), _t(evlo), _t(evhi), _t(mask)
+    got = hash_probe.hash_probe_lens64(  # the mask by value, as a (lo, hi) pair
+        _t(pk), _t(tk), _t(te), _t(evlo), _t(evhi), tuple(mask)
     )
     np.testing.assert_array_equal(_np(got), want)
     assert (want >= 0).any()

@@ -17,7 +17,8 @@ itself and drives ``graftdb_torch``. Phases:
    table's end, a window overflow (17 keys on one home) and a duplicate
    key; the segmented sum of 65,536 rows into 8 and 4,096 groups and of
    the main path's largest row count, 129,246, into 4,096, each beside
-   ``index_add_``; phase 7 times its passes apart). Probe
+   ``index_add_``; phase 7 times its passes apart; and the four probes at
+   one key, whose event mean and device time are the launch floor). Probe
    and insert outputs are integers (an insert's tables are compared where
    ``ok`` is 1, ``ok`` always) and the segmented sum fixes its order of
    additions, which its plain version repeats, so every comparison is
@@ -35,10 +36,13 @@ itself and drives ``graftdb_torch``. Phases:
    the two and read after it. The largest launch of each kernel is
    recorded and replayed against its plain version, and timed. Over the
    default legs the engine's calls that feed the fused chain and the
-   single-query lens probe (``TorchBackend.probe_chain``,
-   ``probe_visible``) are counted and timed on the host, beside the legs'
-   wall seconds; those two kernels also record their host time per call
-   (``enqueue_ms``) on the replay and on phase 3's inputs;
+   probes (``TorchBackend.probe_chain``, ``probe_visible``, ``probe``,
+   ``probe_visible_multi``) and the probe table's upkeep inside them
+   (``_table_for``, and its growth ``_insert_keys``, of which the host
+   insert ``_batch_insert`` and the upload are the rest) are counted and
+   timed on the host, beside the legs' wall seconds; the four kernels of
+   those calls also record their host time per call (``enqueue_ms``) on
+   the replay and on phase 3's inputs;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
    versions), in the default and the opt-in configuration, must give
    identical results, counters, backend stats and virtual clocks;
@@ -61,14 +65,15 @@ itself and drives ``graftdb_torch``. Phases:
    unless the bf16 kernel holds ``wgmma`` and every float32 instance holds
    TF32 ``HMMA`` (``mma.sync``) and spills nothing;
 7. the device time per call of the fused chain (its replay and phase 3's
-   two-stage chain with grants, filters and a sink) and of the lens probe
-   (its replay), by kernel, memset and copy; the segmented sum's phase-3
-   calls and its main-path replay: the two passes by device time; all
-   from ``torch.profiler`` traces, last, since a trace leaves every later
-   launch slower on the host; then the segmented sum's event mean again
-   after the traces. The four levels of the fused chain and the lens
-   probe (event mean, host time per call, device time, engine call) go
-   to ``launch_path`` in ``chip_smoke.json``.
+   two-stage chain with grants, filters and a sink), of the probes B2, B4
+   and B3 (their replays) and of the four probes at one key, by kernel,
+   memset and copy; the segmented sum's phase-3 calls and its main-path
+   replay: the two passes by device time; all from ``torch.profiler``
+   traces, last, since a trace leaves every later launch slower on the
+   host; then the segmented sum's event mean again after the traces. The
+   four levels of the fused chain and of those three probes (event mean,
+   host time per call, device time, engine call) go to ``launch_path`` in
+   ``chip_smoke.json``.
 
 Comparisons are exact except for flash attention, which adds its
 products in another order than its plain version and the full-softmax
@@ -171,16 +176,28 @@ OPTIN = dict(use_insert_kernel=True, use_agg_kernel=True)
 #: the kernels whose launch path this script measures at four levels: the
 #: wrapper's event mean, its host time per call, the device time per launch
 #: and the engine's own call (``launch_path`` in ``chip_smoke.json``)
-LAUNCH_PATH = ("fused_chain", "hash_probe_lens64")
+LAUNCH_PATH = ("fused_chain", "hash_probe_lens64", "hash_probe_lens", "hash_probe_lens_multi64")
 #: kernels timed over SEG_ITERS calls
 MEAN_200 = ("seg_aggregate",) + LAUNCH_PATH
-#: the engine's calls that feed them, timed on the host over the default
-#: legs, and two of the backend's steps inside them and its other probes:
-#: the probe table's upkeep and the entry-indexed mirrors'
-ENGINE_CALLS = ("probe_chain", "probe_visible", "_table_for", "_sync_mirrors")
-#: the replayed calls' event means in PR 15 (run 2 of its A/B call, NVIDIA
-#: H100 80GB HBM3, 700.00 W), kept beside this run's in the JSON file
-PR15_REPLAY_MS = {"fused_chain": 0.09520800113677978, "hash_probe_lens64": 0.022011199593544008}
+#: the engine's calls that feed them (B1, B2, B4, B3 in that order), timed
+#: on the host over the default legs, and the backend's steps inside them:
+#: the probe table's upkeep (``_table_for``), its growth (``_insert_keys``:
+#: the host insert ``_batch_insert``, then the whole table uploaded again)
+#: and the entry-indexed mirrors' upkeep
+ENGINE_CALLS = ("probe_chain", "probe_visible", "probe", "probe_visible_multi", "_table_for",
+                "_insert_keys", "_batch_insert", "_sync_mirrors")
+#: the replayed calls' event means before the redesign of each kernel and
+#: its launch path (this script on an NVIDIA H100 80GB HBM3 at 700.00 W;
+#: ``PERF.md`` names the runs), kept beside this run's in the JSON file
+EARLIER_REPLAY_MS = {
+    "fused_chain": 0.09520800113677978,
+    "hash_probe_lens64": 0.022011199593544008,
+    "hash_probe_lens": 0.018113599717617036,
+    "hash_probe_lens_multi64": 0.02624799907207489,
+}
+#: phase 3's labels of the probes at one key: their event mean and device
+#: time are the launch floor, the least time a call of them takes
+FLOOR = "_n1"
 
 
 def log(*a):
@@ -240,11 +257,12 @@ def seg_entry_ms(codes, vals, n_groups):
 #: the segmented sum's calls whose passes the last phase times apart
 #: (``trace_seg_passes``): label, call and its ``index_add_`` twin
 SEG_TRACES = []
-#: calls per CUDA-event mean of the segmented sum, the fused chain and the
-#: single-query lens probe, whose host-bound means vary from call to call
+#: calls per CUDA-event mean of the segmented sum and of ``LAUNCH_PATH``'s
+#: kernels, whose host-bound means vary from call to call
 SEG_ITERS = 200
-#: the fused chain's and the single-query lens probe's calls whose device
-#: time the last phase reads from a profiler trace (``trace_launch_path``)
+#: the calls of ``LAUNCH_PATH``'s kernels and of the probes at one key whose
+#: device time the last phase reads from a profiler trace
+#: (``trace_launch_path``)
 LAUNCH_TRACES = []
 
 
@@ -269,9 +287,10 @@ def seg_times(label, call, codes, vals, n_groups):
 
 
 def trace_launch_path(report):
-    """Last phase, beside B7's traces: each recorded B1 and B2 call by
-    device time per call from a profiler trace, by CUDA kernel, memset and
-    copy (level c of ``launch_path`` in ``chip_smoke.json``)."""
+    """Last phase, beside B7's traces: each recorded call of B1-B4 (and of
+    the probes at one key) by device time per call from a profiler trace,
+    by CUDA kernel, memset and copy (level c of ``launch_path`` in
+    ``chip_smoke.json``)."""
     recs = report["launch_path"]["device_ms"] = {}
     for label, call in LAUNCH_TRACES:
         recs[label] = kernel_device_ms(call, 50)
@@ -535,7 +554,7 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
     k, tk, te, lo, hi = t(probe), t(tkeys), t(tentry), t(evlo), t(evhi)
     ones = torch.ones_like(tk)
     slot_vis = torch.where(te >= 0, lo[te.clamp(min=0).to(torch.int64)], 0)
-    all_mask = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    all_mask = torch.full((1,), -1, dtype=torch.int32)  # B4's mask, on the host
     lens_mask = torch.from_numpy(np.array([1 << 5, 1 << 7], np.uint32).view(np.int32))  # host
 
     # chain: stage 0 probes host keys into the orders table; stage 1
@@ -582,11 +601,16 @@ def kernel_inputs(db, n_probe=65_536, seed=0):
     vals = t(rng.normal(size=(n_probe, 1)).astype(np.float32))
     long_codes = t(rng.integers(0, 4096, SEG_PATH_ROWS).astype(np.int32))
     long_vals = t(rng.normal(size=(SEG_PATH_ROWS, 1)).astype(np.float32))
+    one = t(keys[:1].astype(np.int32))  # an order key: a hit
     return {
         "hash_probe_lens": ("hash_probe_lens", (k, tk, ones, all_mask)),
         "hash_probe_lens64": ("hash_probe_lens64", (k, tk, te, lo, hi, lens_mask)),
         "hash_probe_lens_multi64": ("hash_probe_lens_multi64", (k, tk, te, lo, hi)),
         "hash_probe_lens_multi": ("hash_probe_lens_multi", (k, tk, slot_vis)),
+        "hash_probe_lens" + FLOOR: ("hash_probe_lens", (one, tk, ones, all_mask)),
+        "hash_probe_lens64" + FLOOR: ("hash_probe_lens64", (one, tk, te, lo, hi, lens_mask)),
+        "hash_probe_lens_multi64" + FLOOR: ("hash_probe_lens_multi64", (one, tk, te, lo, hi)),
+        "hash_probe_lens_multi" + FLOOR: ("hash_probe_lens_multi", (one, tk, slot_vis)),
         "fused_chain": ("fused_chain", simple),
         "fused_chain_rich": ("fused_chain", rich),
         "hash_build_insert": ("hash_build_insert", (t(keys.astype(np.int32)), len(tkeys))),
@@ -669,10 +693,10 @@ def max_abs_err(name, got, want):
 def compare(name, args, timed=True, iters=20, label=None, trace=False):
     """Run a kernel and its plain version on the same card inputs; require
     exact equality; return error, times, bound and, where one PyTorch call
-    computes the same function, that call's time. The fused chain and the
-    single-query lens probe also record their host time per call
-    (``enqueue_ms``) and, with ``trace``, have their device time read in the
-    last phase."""
+    computes the same function, that call's time. The kernels of
+    ``LAUNCH_PATH`` and the traced calls also record their host time per
+    call (``enqueue_ms``); with ``trace`` a call has its device time read in
+    the last phase."""
     import torch
 
     kern, plain = kernel_pair(name)
@@ -693,12 +717,12 @@ def compare(name, args, timed=True, iters=20, label=None, trace=False):
         rec["plain_on"] = "host"
         rec["bound_ms"], rec["bound_by"] = insert_bound(args[0], args[1], want[0])
         return rec
-    rec["ms"] = time_ms(lambda: kern(*args), SEG_ITERS if name in MEAN_200 else iters)
+    rec["ms"] = time_ms(lambda: kern(*args), SEG_ITERS if name in MEAN_200 or trace else iters)
     rec["plain_ms"] = time_ms(lambda: plain(*args), max(2, iters // 4))
-    if name in LAUNCH_PATH:
+    if name in LAUNCH_PATH or trace:
         rec["enqueue_ms"] = enqueue_ms(lambda: kern(*args), SEG_ITERS)
-        if trace:
-            LAUNCH_TRACES.append((label, lambda: kern(*args)))
+    if trace:
+        LAUNCH_TRACES.append((label, lambda: kern(*args)))
     if name == "fused_chain":
         rec["bound_ms"], rec["bound_by"] = chain_bound(args[0], args[1], got[0])
     elif name == "seg_aggregate":
@@ -716,15 +740,13 @@ class Recorder:
     so the main path's own inputs can be replayed after the legs. Tables
     and mirrors are kept by reference: the replay sees them as the backend
     left them (patched in place later). The per-row inputs of the chain and
-    the keys of the lens probe are copied on the device when a larger call
-    comes, since the backend may stage them in buffers that later calls
+    the keys of the probes are copied on the device when a larger call
+    comes, since the backend stages them in buffers that later calls
     overwrite.
 
-    It also times the engine's own calls that feed B1 and B2
-    (``TorchBackend.probe_chain`` and ``probe_visible``), and the probe
-    table's and the mirrors' upkeep (``_table_for``, ``_sync_mirrors``,
-    which those calls and the other probes run): their number and host
-    seconds, taken by ``engine_times``."""
+    It also times the backend's ``ENGINE_CALLS``: the engine's own calls
+    that feed B1-B4 and the upkeep steps inside them, their number and
+    host seconds, taken by ``engine_times``."""
 
     def __init__(self):
         import repro_torch.api.backends as backends
@@ -737,9 +759,13 @@ class Recorder:
         self.engine = {name: [0, 0.0] for name in ENGINE_CALLS}
         self.methods = {}
         for name in ENGINE_CALLS:
-            orig = getattr(backends.TorchBackend, name)
+            orig = backends.TorchBackend.__dict__[name]  # a staticmethod stays one
             self.methods[name] = orig
-            setattr(backends.TorchBackend, name, self._timed(orig, self.engine[name]))
+            if isinstance(orig, staticmethod):
+                timed = staticmethod(self._timed(orig.__func__, self.engine[name]))
+            else:
+                timed = self._timed(orig, self.engine[name])
+            setattr(backends.TorchBackend, name, timed)
         for fn_name, name in (("hash_probe_lens", "hash_probe_lens"),
                               ("hash_probe_lens64", "hash_probe_lens64"),
                               ("hash_probe_lens_multi64", "hash_probe_lens_multi64"),
@@ -779,7 +805,7 @@ class Recorder:
                     spec, arrays = args
                     kept = (spec, [a.clone() if k == "row" else a
                                    for a, k in zip(arrays, self.kinds(spec))])
-                elif name == "hash_probe_lens64":
+                elif name in ("hash_probe_lens64", "hash_probe_lens", "hash_probe_lens_multi64"):
                     kept = (args[0].clone(),) + tuple(args[1:])
                 else:
                     kept = args
@@ -962,13 +988,14 @@ def smoke(report):
     inputs = kernel_inputs(db)
     synth = {}
     for label, (kname, kin) in inputs.items():
-        rec = compare(kname, kin, label=label, trace=label == "fused_chain_rich")
+        rec = compare(kname, kin, label=label,
+                      trace=label == "fused_chain_rich" or label.endswith(FLOOR))
         synth[label] = rec
         lib = "" if rec["library_ms"] is None else f", index_add_ {rec['library_ms']:.4f} ms"
         ok = f" (ok {rec['ok']})" if "ok" in rec else ""
         host = (f"; launch on its buffers {rec['entry_ms']:.4f} ms, enqueue "
                 f"{rec['enqueue_ms']:.4f} ms" if "entry_ms" in rec else "")
-        if kname in LAUNCH_PATH:
+        if "enqueue_ms" in rec and "entry_ms" not in rec:
             host = f"; enqueue {rec['enqueue_ms']:.5f} ms"
         log(f"kernel {label}: equal to plain{ok}; {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}{lib}){host}")
@@ -979,7 +1006,7 @@ def smoke(report):
     report["kernels_sf_shapes"] = synth
     report["launch_path_sf_shapes"] = {
         label: {k: rec[k] for k in ("ms", "enqueue_ms", "bound_ms")}
-        for label, rec in synth.items() if inputs[label][0] in LAUNCH_PATH}
+        for label, rec in synth.items() if inputs[label][0] in LAUNCH_PATH or label.endswith(FLOOR)}
     del inputs
 
     # 4. the main path at the full scale: the default config, then opt-in
@@ -1011,10 +1038,14 @@ def smoke(report):
         recorder.restore()
     legs_wall = sum(report["legs"][label]["wall_s"] for label, *_ in legs)
     report["launch_path"] = {"engine": engine, "default_legs_wall_s": legs_wall,
-                             "replay": {}, "pr15_replay_ms": PR15_REPLAY_MS}
+                             "replay": {}, "earlier_replay_ms": EARLIER_REPLAY_MS}
     for name, rec in engine.items():
         log(f"engine {name} over the default legs: {rec['calls']} calls, {rec['seconds']:.4f} s "
             f"on the host ({rec['ms_per_call']} ms a call); legs' wall {legs_wall:.4f} s")
+    upload = engine["_insert_keys"]["seconds"] - engine["_batch_insert"]["seconds"]
+    report["launch_path"]["table_upload_s"] = upload
+    log(f"probe table growth over the default legs: host insert "
+        f"{engine['_batch_insert']['seconds']:.4f} s, the rest (the upload) {upload:.4f} s")
 
     rows = []
     for kname, (src, replaces) in KERNELS.items():
@@ -1028,7 +1059,7 @@ def smoke(report):
                 report["launch_path"]["replay"][kname] = {
                     k: rec[k] for k in ("ms", "enqueue_ms", "bound_ms")}
                 log(f"{where}: event mean {rec['ms']:.5f} ms, enqueue {rec['enqueue_ms']:.5f} ms "
-                    f"(PR 15's event mean {PR15_REPLAY_MS[kname]} ms)")
+                    f"(before the redesign {EARLIER_REPLAY_MS[kname]} ms)")
         else:  # on no engine path: its phase-3 numbers
             size, rec = None, synth[kname]
             where = f"kernel {kname} (phase 3)"

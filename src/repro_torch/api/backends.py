@@ -112,11 +112,6 @@ def _i32(a: np.ndarray) -> np.ndarray:
     return a.astype(np.int32, copy=False)
 
 
-def _u32(t: torch.Tensor) -> np.ndarray:
-    """A device int32 word tensor back on the host as uint32."""
-    return t.cpu().numpy().view(np.uint32)
-
-
 class _Staging:
     """The per-row inputs of one kernel call, staged through one host buffer
     into one device buffer, and the call's output brought back into a
@@ -166,13 +161,13 @@ class _Staging:
         self.dev[: self.used].copy_(self.host[: self.used], non_blocking=True)
 
     def fetch(self, out: torch.Tensor) -> np.ndarray:
-        """``out`` (int32) in host memory after the call's one wait; a
-        view that the next fetch overwrites."""
+        """``out`` (int32, contiguous) in host memory, in its shape, after
+        the call's one wait; a view that the next fetch overwrites."""
         n = out.numel()
         self.out = self._grow(self.out, n, False)
-        self.out[:n].copy_(out, non_blocking=True)
+        self.out[:n].copy_(out.view(-1), non_blocking=True)
         self.wait()
-        return self.out[:n].numpy()
+        return self.out[:n].numpy().reshape(out.shape)
 
     def wait(self) -> None:
         if self.pinned:
@@ -302,8 +297,7 @@ class TorchBackend:
         self._tables: "weakref.WeakKeyDictionary[SharedHashBuildState, _ProbeTable]" = (
             weakref.WeakKeyDictionary()
         )
-        self._qmask = None  # constant all-ones lens mask, built lazily
-        self._staging = _Staging(self.device)  # row inputs of chain and lens probes
+        self._staging = _Staging(self.device)  # row inputs of the chain and the probes
         self.kernel_probes = 0
         self.kernel_lens_probes = 0
         self.kernel_multi_probes = 0
@@ -345,6 +339,16 @@ class TorchBackend:
         """A fresh device copy of a host array, 32-bit words as int32."""
         return torch.from_numpy(_i32(a)).to(self.device, copy=True)
 
+    def _staged_keys(self, keycodes: np.ndarray) -> torch.Tensor:
+        """A probe's keys on the device, through the staging buffers (int32
+        in the copy into the host buffer); the probe's ``fetch`` of its
+        output is then the call's one wait."""
+        stage = self._staging
+        stage.begin(1, len(keycodes))
+        keys = stage.row(keycodes)
+        stage.upload()
+        return keys
+
     # -- probe ---------------------------------------------------------------
     def probe(self, state, keycodes, counters=None):
         if state.keycode.n == 0 or len(keycodes) == 0:
@@ -359,11 +363,9 @@ class TorchBackend:
             self.note_fallback("keyrange", counters)
             return self._ref.probe(state, keycodes)
         tkeys, tones, slot_entry = table
-        if self._qmask is None:  # lens off: pure key match
-            self._qmask = torch.full((1,), -1, dtype=torch.int32, device=self.device)
-        found_slots = hash_probe_lens(
-            self._to_dev(keycodes), tkeys, tones, self._qmask
-        ).cpu().numpy()
+        keys = self._staged_keys(keycodes)
+        # lens off: pure key match, an all-ones mask over all-ones words
+        found_slots = self._staging.fetch(hash_probe_lens(keys, tkeys, tones, 0xFFFFFFFF))
         self.kernel_probes += 1
         probe_idx = np.flatnonzero(found_slots >= 0).astype(np.int64)
         entry_idx = slot_entry[found_slots[probe_idx]]
@@ -391,12 +393,9 @@ class TorchBackend:
             return None
         ent = self._tables[state]
         self._sync_mirrors(ent, state)
-        stage = self._staging
-        stage.begin(1, len(keycodes))
-        keys = stage.row(keycodes)  # int32 in the copy into the staging buffer
-        stage.upload()
+        keys = self._staged_keys(keycodes)
         bit = 1 << slot  # the lens mask, by value
-        found = stage.fetch(hash_probe_lens64(
+        found = self._staging.fetch(hash_probe_lens64(
             keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi, (bit & 0xFFFFFFFF, bit >> 32)
         ))
         self.kernel_probes += 1
@@ -421,15 +420,14 @@ class TorchBackend:
             return None
         ent = self._tables[state]
         self._sync_mirrors(ent, state)
-        found, wlo, whi = hash_probe_lens_multi64(
-            self._to_dev(keycodes), ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi
-        )
-        found = found.cpu().numpy()
+        keys = self._staged_keys(keycodes)
+        rows = hash_probe_lens_multi64(keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi)
+        found, wlo, whi = self._staging.fetch(rows[0]._base)  # the [3, N] buffer
         self.kernel_probes += 1
         self.kernel_multi_probes += 1
         probe_idx = np.flatnonzero(found >= 0).astype(np.int64)
         entry_idx = ent.slot_entry[found[probe_idx]]
-        vis_words = join_words(_u32(wlo)[probe_idx], _u32(whi)[probe_idx])
+        vis_words = join_words(wlo.view(np.uint32)[probe_idx], whi.view(np.uint32)[probe_idx])
         return probe_idx, entry_idx, vis_words
 
     # -- fused stage chain (DESIGN.md §13) -----------------------------------

@@ -21,7 +21,10 @@ H100 and what the design does about it):
 
 Every uint32 word (visibility halves, query masks) travels as an int32
 tensor holding the same bits: torch has no full uint32 arithmetic, and
-AND / OR / equality are bit-identical either way. A wrapper runs its CUDA
+AND / OR / equality are bit-identical either way. The query masks of
+``hash_probe_lens`` and ``hash_probe_lens64`` are held on the host and go
+to the kernel by value; ``hash_probe_lens_multi64`` returns its three
+outputs as the rows of one ``[3, N]`` tensor. A wrapper runs its CUDA
 kernel for CUDA tensors and its plain PyTorch version (``*_plain``) for
 CPU tensors; it never falls back from one to the other.
 """
@@ -79,13 +82,29 @@ def _check_cap(name, cap):
 
 
 # -- B4: slot-indexed 32-bit lens --------------------------------------------
+def mask_word(query_mask):
+    """A 32-bit lens mask held on the host — a CPU int32 ``[1]`` tensor or
+    an integer — as an unsigned 32-bit Python int (the 32-bit counterpart
+    of :func:`mask_words`). A mask on the card is refused: reading it would
+    wait for the card."""
+    if isinstance(query_mask, torch.Tensor):
+        if query_mask.device.type != "cpu" or query_mask.dtype != torch.int32 \
+                or tuple(query_mask.shape) != (1,):
+            raise TypeError("query_mask is a CPU int32 [1] tensor or an int, got "
+                            f"{query_mask.dtype} {tuple(query_mask.shape)} on {query_mask.device}")
+        query_mask = query_mask.item()
+    elif not isinstance(query_mask, (int, np.integer)):
+        raise TypeError(f"query_mask is a CPU int32 [1] tensor or an int, got {type(query_mask)}")
+    return int(query_mask) & _LO32
+
+
 def hash_probe_lens_plain(probe_keys, table_keys, table_vis, query_mask):
     keys = probe_keys.to(torch.int64)
     cap = table_keys.shape[0]
     pos = _hash(probe_keys, cap)
     found = torch.full(keys.shape, -1, dtype=torch.int64, device=keys.device)
     done = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
-    qmask = query_mask[0]
+    qmask = _signed(mask_word(query_mask))
     for _ in range(MAX_PROBE):
         slot_keys = table_keys[pos]
         hit = (slot_keys == keys) & ~done
@@ -97,23 +116,29 @@ def hash_probe_lens_plain(probe_keys, table_keys, table_vis, query_mask):
     return found.to(torch.int32)
 
 
+@functools.cache
+def _hp_probe_lens():
+    return _build.bind("hash_probe", "hp_probe_lens", 4, 3, 1)
+
+
 def hash_probe_lens(probe_keys, table_keys, table_vis, query_mask):
-    """Per probe key the matched slot if ``table_vis[slot] & query_mask[0]``
+    """Per probe key the matched slot if ``table_vis[slot] & query_mask``
     is non-zero, else -1. A key hit ends the search even when it is not
     visible. ``probe_keys``/``table_keys`` int32 ``[N]``/``[T]`` (T a power
-    of two, EMPTY sentinel), ``table_vis`` ``[T]`` and ``query_mask``
-    ``[1]`` uint32 bits as int32. Returns int32 ``[N]``."""
+    of two, EMPTY sentinel) and ``table_vis`` ``[T]`` uint32 bits as int32;
+    ``query_mask`` is the 32-bit lens mask held on the host
+    (:func:`mask_word`), which the kernel takes by value. Returns int32
+    ``[N]``."""
     name = "hash_probe_lens"
-    _check(name, probe_keys.device, probe_keys, table_keys, table_vis, query_mask)
+    qmask = mask_word(query_mask)
+    _check(name, probe_keys.device, probe_keys, table_keys, table_vis)
     _check_cap(name, table_keys.shape[0])
     if probe_keys.device.type == "cpu":
-        return hash_probe_lens_plain(probe_keys, table_keys, table_vis, query_mask)
+        return hash_probe_lens_plain(probe_keys, table_keys, table_vis, qmask)
     out = torch.empty_like(probe_keys)
-    fn = _build.bind("hash_probe", "hp_probe_lens", 5, 2, 1)
-    err = fn(
-        probe_keys.data_ptr(), table_keys.data_ptr(), table_vis.data_ptr(),
-        query_mask.data_ptr(), out.data_ptr(),
-        probe_keys.shape[0], table_keys.shape[0], _build.stream_ptr(probe_keys.device),
+    err = _hp_probe_lens()(
+        probe_keys.data_ptr(), table_keys.data_ptr(), table_vis.data_ptr(), out.data_ptr(),
+        probe_keys.shape[0], table_keys.shape[0], qmask, _build.stream_ptr(probe_keys.device),
     )
     _build.check(err, name)
     _build.count_launch(name)
@@ -236,6 +261,7 @@ def hash_probe_lens64(probe_keys, table_keys, table_entry, evis_lo, evis_hi, que
 
 # -- B3: pre-visibility slot + the matched entry's 64-bit word -----------------
 def hash_probe_lens_multi64_plain(probe_keys, table_keys, table_entry, evis_lo, evis_hi):
+    """The kernel's function, into the same rows of one ``[3, N]`` tensor."""
     keys = probe_keys.to(torch.int64)
     cap = table_keys.shape[0]
     pos = _hash(probe_keys, cap)
@@ -251,10 +277,16 @@ def hash_probe_lens_multi64_plain(probe_keys, table_keys, table_entry, evis_lo, 
     matched = found >= 0
     entry = torch.where(matched, table_entry[torch.where(matched, found, 0)], 0)
     entry = entry.to(torch.int64)
-    zero = torch.zeros((), dtype=torch.int32, device=keys.device)
-    wlo = torch.where(matched, evis_lo[entry], zero)
-    whi = torch.where(matched, evis_hi[entry], zero)
-    return found.to(torch.int32), wlo, whi
+    out = torch.empty((3, keys.shape[0]), dtype=torch.int32, device=keys.device)
+    out[0] = found
+    out[1] = torch.where(matched, evis_lo[entry], 0)
+    out[2] = torch.where(matched, evis_hi[entry], 0)
+    return out.unbind(0)
+
+
+@functools.cache
+def _hp_probe_multi64():
+    return _build.bind("hash_probe", "hp_probe_multi64", 6, 3, 1)
 
 
 def hash_probe_lens_multi64(probe_keys, table_keys, table_entry, evis_lo, evis_hi):
@@ -262,7 +294,9 @@ def hash_probe_lens_multi64(probe_keys, table_keys, table_entry, evis_lo, evis_h
     pre-visibility — the pair stream equals a plain probe's) and the
     matched entry's full 64-bit lens word as (lo, hi) halves (zero on a
     miss). One launch serves every probing member; the host translates the
-    word to pipeline ownership bits."""
+    word to pipeline ownership bits. The three come back as the rows of
+    one int32 ``[3, N]`` tensor (``found._base``), on either device, so a
+    caller brings them to the host with one copy."""
     name = "hash_probe_lens_multi64"
     _check(name, probe_keys.device, probe_keys, table_keys, table_entry, evis_lo, evis_hi)
     _check_cap(name, table_keys.shape[0])
@@ -270,19 +304,15 @@ def hash_probe_lens_multi64(probe_keys, table_keys, table_entry, evis_lo, evis_h
         return hash_probe_lens_multi64_plain(
             probe_keys, table_keys, table_entry, evis_lo, evis_hi
         )
-    found = torch.empty_like(probe_keys)
-    wlo = torch.empty_like(probe_keys)
-    whi = torch.empty_like(probe_keys)
-    fn = _build.bind("hash_probe", "hp_probe_multi64", 8, 3, 1)
-    err = fn(
+    out = torch.empty((3, probe_keys.shape[0]), dtype=torch.int32, device=probe_keys.device)
+    err = _hp_probe_multi64()(
         probe_keys.data_ptr(), table_keys.data_ptr(), table_entry.data_ptr(),
-        evis_lo.data_ptr(), evis_hi.data_ptr(), found.data_ptr(), wlo.data_ptr(),
-        whi.data_ptr(), probe_keys.shape[0], table_keys.shape[0], evis_lo.shape[0],
-        _build.stream_ptr(probe_keys.device),
+        evis_lo.data_ptr(), evis_hi.data_ptr(), out.data_ptr(), probe_keys.shape[0],
+        table_keys.shape[0], evis_lo.shape[0], _build.stream_ptr(probe_keys.device),
     )
     _build.check(err, name)
     _build.count_launch(name)
-    return found, wlo, whi
+    return out.unbind(0)
 
 
 # -- B6: batch insert into a fresh table ---------------------------------------

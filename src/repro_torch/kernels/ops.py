@@ -78,14 +78,13 @@ def build_insert(keys, capacity=None, device: str = "cuda"):
 
 def probe(probe_keys, table_keys, table_vis, query_mask, device: str = "cuda"):
     """Per probe key the matched slot if its vis word ANDs the 32-bit
-    ``query_mask`` non-zero, else -1."""
+    ``query_mask`` non-zero, else -1. The mask goes to the kernel by value,
+    as a host integer."""
     if isinstance(query_mask, torch.Tensor):
-        query_mask = query_mask.reshape(1)
-    else:
-        query_mask = np.asarray(query_mask, dtype=np.uint32).reshape(1)
+        query_mask = query_mask.cpu().numpy()
+    mask = int(np.asarray(query_mask).reshape(1)[0])
     return hash_probe_lens(
-        _i32(probe_keys, device), _i32(table_keys, device), _i32(table_vis, device),
-        _i32(query_mask, device),
+        _i32(probe_keys, device), _i32(table_keys, device), _i32(table_vis, device), mask,
     )
 
 

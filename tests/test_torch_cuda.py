@@ -99,16 +99,31 @@ def test_cuda_probes_match_plain(cuda, case):
     arrays = _probe_inputs(case)
     k, tk, tv, te, lo, hi, m = (_t(a, cuda) for a in arrays)
     c = [_t(a) for a in arrays]
-    got = hash_probe.hash_probe_lens(k, tk, tv, m[:1])
+    got = hash_probe.hash_probe_lens(k, tk, tv, c[6][:1])  # the masks on the host
     assert torch.equal(got.cpu(), hash_probe.hash_probe_lens_plain(c[0], c[1], c[2], c[6][:1]))
-    got = hash_probe.hash_probe_lens64(k, tk, te, lo, hi, c[6])  # the mask on the host
+    got = hash_probe.hash_probe_lens64(k, tk, te, lo, hi, c[6])
     want = hash_probe.hash_probe_lens64_plain(c[0], c[1], c[3], c[4], c[5], c[6])
     assert torch.equal(got.cpu(), want)
     got = hash_probe.hash_probe_lens_multi64(k, tk, te, lo, hi)
     want = hash_probe.hash_probe_lens_multi64_plain(c[0], c[1], c[3], c[4], c[5])
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    buf = got[0]._base  # the three rows of one [3, N] buffer
+    assert buf.is_cuda and tuple(buf.shape) == (3, k.shape[0])
+    assert all(g._base is buf for g in got)
+    assert torch.equal(buf.cpu(), want[0]._base)
+    with pytest.raises(TypeError, match="query_mask"):  # a mask on the card
+        hash_probe.hash_probe_lens(k, tk, tv, m[:1])
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mask", [0, 1, 1 << 31, 0x55555555, 0xFFFFFFFF])
+def test_cuda_probe_lens_mask_values(cuda, mask):
+    """B4's 32-bit mask by value: no bit, the lowest, the highest, every
+    other bit and all bits, against the plain version."""
+    probe, tk, tv, *_ = _probe_inputs("zero_vis", seed=mask & 0xFF)
+    want = hash_probe.hash_probe_lens_plain(_t(probe), _t(tk), _t(tv), mask)
+    got = hash_probe.hash_probe_lens(_t(probe, cuda), _t(tk, cuda), _t(tv, cuda), mask)
+    assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) > 0 or mask == 0
 
 
 SPECIALS = np.array(
@@ -215,44 +230,59 @@ def test_cuda_probe_lens64_mask_slots(cuda, slot):
 
 
 def test_cuda_launch_path_does_not_synchronize(cuda):
-    """Neither wrapper waits for the card: both run under
+    """No wrapper of B1-B4 waits for the card: each runs under
     ``set_sync_debug_mode("error")``, which raises on any call that would."""
     spec, arrays = _chain_inputs(9, n=4096, n_e=500)
     chain_in = [_t(a, cuda) for a in arrays]
-    probe, tk, _, te, lo, hi, mask = _probe_inputs("misses")
+    probe, tk, tv, te, lo, hi, mask = _probe_inputs("misses")
     probe_in = [_t(a, cuda) for a in (probe, tk, te, lo, hi)]
+    slot_in = [_t(a, cuda) for a in (probe, tk, tv)]
     pair = tuple(int(w) for w in mask)
-    fused_chain.chain_launch(spec, chain_in)  # builds and binds first
-    hash_probe.hash_probe_lens64(*probe_in, pair)
+
+    def calls():
+        return (fused_chain.chain_launch(spec, chain_in),
+                hash_probe.hash_probe_lens64(*probe_in, pair),
+                hash_probe.hash_probe_lens(*slot_in, pair[0]),
+                hash_probe.hash_probe_lens_multi64(*probe_in)[0]._base)
+
+    calls()  # builds and binds first
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got_chain = fused_chain.chain_launch(spec, chain_in)
-        got_probe = hash_probe.hash_probe_lens64(*probe_in, pair)
+        got = calls()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert torch.equal(got_chain.cpu(), fused_chain.chain_plain(spec, [_t(a) for a in arrays]))
-    want = hash_probe.hash_probe_lens64_plain(*(_t(a) for a in (probe, tk, te, lo, hi)), pair)
-    assert torch.equal(got_probe.cpu(), want)
+    assert torch.equal(got[0].cpu(), fused_chain.chain_plain(spec, [_t(a) for a in arrays]))
+    host = [_t(a) for a in (probe, tk, te, lo, hi)]
+    assert torch.equal(got[1].cpu(), hash_probe.hash_probe_lens64_plain(*host, pair))
+    assert torch.equal(got[2].cpu(), hash_probe.hash_probe_lens_plain(
+        *(_t(a) for a in (probe, tk, tv)), pair[0]))
+    assert torch.equal(got[3].cpu(), hash_probe.hash_probe_lens_multi64_plain(*host)[0]._base)
 
 
-@pytest.mark.parametrize("member_major", [True, False])
-def test_cuda_backend_calls_wait_once(cuda, member_major):
-    """Each chain call (``member_major``) or single-query lens probe of a
-    session's backend, made again at once on its own arguments, waits
-    once: everything but its one wait runs under
-    ``set_sync_debug_mode("error")``, and the wait is counted. The first
-    call brings the mirrors and buffers up to date; the second gives its
-    result."""
+@pytest.mark.parametrize("name", ["probe_chain", "probe_visible", "probe", "probe_visible_multi"])
+def test_cuda_backend_calls_wait_once(cuda, name):
+    """Each call of a session's backend to the chain (B1), the lens probe
+    (B2), the plain probe (B4) or the multi-member probe (B3) that launches
+    its kernel, made again at once on its own arguments, waits once:
+    everything but its one wait runs under ``set_sync_debug_mode("error")``,
+    and the wait is counted. The first call brings the mirrors and buffers
+    up to date; the second gives its result. The chain runs member-major;
+    the other probes come from the per-member loops of sampled queries, and
+    the multi-member probe from two concurrent q5s."""
     import graftdb_torch
     from repro_torch.api.backends import TorchBackend
     from repro_torch.relational import queries, tpch
 
     db = tpch.get_database(0.01, seed=7)
     rng = np.random.default_rng(7)
-    qs = [queries.sample_query(db, rng, arrival=0.01 * i) for i in range(6)]
+    if name == "probe_visible_multi":
+        qs = [queries.make_query(db, "q5", {"region": 1.0, "date": d}, arrival=0.0)
+              for d in (730.0, 800.0)]
+    else:
+        qs = [queries.sample_query(db, rng, arrival=0.01 * i) for i in range(6)]
+    member_major = name in ("probe_chain", "probe_visible_multi")
     backend = TorchBackend(device="cuda")
-    name = "probe_chain" if member_major else "probe_visible"
     orig, stage, waits = getattr(backend, name), backend._staging, []
 
     def wait():
@@ -263,9 +293,13 @@ def test_cuda_backend_calls_wait_once(cuda, member_major):
         finally:
             torch.cuda.set_sync_debug_mode("error")
 
+    def launches():
+        return backend.kernel_probes + backend.chain_launches
+
     def twice(*args, **kw):
+        before = launches()
         want = orig(*args, **kw)
-        if want is None:
+        if want is None or launches() == before:  # declined, or the host probe served it
             return want
         waits.append(0)
         stage.wait = wait
@@ -276,7 +310,7 @@ def test_cuda_backend_calls_wait_once(cuda, member_major):
             torch.cuda.set_sync_debug_mode(0)
             del stage.wait
         pairs = ([(got[k], want[k]) for k in want if k != "entries"]
-                 + list(zip(got["entries"], want["entries"])) if member_major
+                 + list(zip(got["entries"], want["entries"])) if name == "probe_chain"
                  else zip(got, want))
         for g, w in pairs:
             np.testing.assert_array_equal(g, w)

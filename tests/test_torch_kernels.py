@@ -170,6 +170,55 @@ def test_probe_multi_slot32_matches_reference(case):
         assert (hit_words >= 1 << 31).any()
 
 
+LENS_MASKS = [0, 1, 1 << 31, 0x55555555, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("mask", LENS_MASKS)
+@pytest.mark.parametrize("case", CASES)
+def test_probe_lens_mask_by_value_matches_reference(case, mask):
+    """B4's mask held on the host, as an int and as a CPU int32 [1] tensor,
+    against the reference's kernel in interpret mode: no bit, the lowest,
+    the highest, every other bit, and all bits."""
+    pk, tk, tv, _, _, _, _, _ = _probe_case(case)
+    want = np.asarray(ref_hp.hash_probe_lens(
+        pk, tk, tv, np.array([mask], np.uint32), interpret=True))
+    tensor_mask = torch.from_numpy(np.array([mask], np.uint32).view(np.int32))
+    for m in (mask, tensor_mask):
+        np.testing.assert_array_equal(_np(hash_probe.hash_probe_lens(_t(pk), _t(tk), _t(tv), m)),
+                                      want)
+    assert (want >= 0).any() == (mask != 0)
+
+
+@pytest.mark.parametrize("mask", [torch.zeros(2, dtype=torch.int32),
+                                  torch.zeros(1, dtype=torch.int64),
+                                  torch.zeros((1, 1), dtype=torch.int32),
+                                  torch.zeros(1, dtype=torch.int32, device="meta"),
+                                  1.0, [1]])
+def test_probe_lens_refuses_other_masks(mask):
+    """A mask of another shape, type or place is refused: one on a device
+    (here ``meta``, standing for the card) would make the wrapper wait."""
+    args = [torch.zeros(8, dtype=torch.int32) for _ in range(3)]
+    with pytest.raises(TypeError, match="query_mask"):
+        hash_probe.hash_probe_lens(*args, mask)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_probe_multi64_rows_of_one_buffer(case):
+    """B3's slot, lo and hi come back as the rows of one int32 ``[3, N]``
+    tensor, equal to the reference's outputs, with zero words on misses."""
+    pk, tk, _, te, evlo, evhi, _, _ = _probe_case(case)
+    want = [np.asarray(a) for a in ref_hp.hash_probe_lens_multi64(
+        pk, tk, te, evlo, evhi, interpret=True)]
+    got = hash_probe.hash_probe_lens_multi64(_t(pk), _t(tk), _t(te), _t(evlo), _t(evhi))
+    buf = got[0]._base
+    assert buf is not None and buf.dtype == torch.int32 and tuple(buf.shape) == (3, len(pk))
+    for row, g in enumerate(got):
+        assert g._base is buf and g.data_ptr() == buf[row].data_ptr()
+    np.testing.assert_array_equal(buf.numpy(), np.stack([w.view(np.int32) for w in want]))
+    miss = want[0] < 0
+    assert miss.any() and (buf[1:, torch.from_numpy(miss)] == 0).all()
+
+
 def test_probe_rejects_mixed_devices_and_dtypes():
     pk, tk, tv, _, _, _, _, m32 = _probe_case("misses")
     with pytest.raises(TypeError):

@@ -1,17 +1,20 @@
-"""The launch path of the fused chain (B1) and the single-query lens probe
-(B2), on the CPU.
+"""The launch path of the fused chain (B1) and the probes (B2-B4), on the
+CPU.
 
 B1's kernel takes its argument block by value: ``chain_args`` lays it out
 in host memory as ``[D, n_in] + chain_descriptor(spec, arrays)``, then the
 inputs' pointers in ``input_kinds`` order and the outputs' places in the
 flat buffer. B2's kernel takes the 64-bit lens mask by value, given on the
-host. ``TorchBackend`` stages every row input of a chain call, and the keys
-of a lens probe, through one host buffer into one device buffer, padded in
-place. These tests hold the block against the descriptor and the pointer
-order, the staged rows against the padding the backend used to build with
+host, as B4's takes its 32-bit one; B3 returns its three outputs as the
+rows of one buffer. ``TorchBackend`` stages every row input of a chain
+call, and the keys of each probe, through one host buffer into one device
+buffer, padded in place, and brings each call's output back with one copy.
+These tests hold the block against the descriptor and the pointer order,
+the staged rows against the padding the backend used to build with
 ``np.concatenate``, the probe with its mask by value against the
 reference's Pallas kernel (interpret mode), and ``TorchBackend(device=
-"cpu")`` sessions against the reference engine. Nothing here needs a card.
+"cpu")`` sessions that reach each engine call against the reference
+engine. Nothing here needs a card.
 """
 
 import dataclasses
@@ -252,3 +255,51 @@ def test_cpu_sessions_keep_results_counters_and_clock(db, tdb, member_major):
     else:
         assert backend.kernel_lens_probes > 0
     assert backend._staging.used > 0 and not backend._staging.pinned
+
+
+def _q5_pair(make, db):
+    """Two concurrent q5s: their shared pipeline declines the fused chain
+    (q5's column-equality post-filter), so its stages probe through
+    ``probe_visible_multi``."""
+    return [make(db, "q5", {"region": 1.0, "date": d}, arrival=0.0) for d in (730.0, 800.0)]
+
+
+@pytest.mark.parametrize("call", ["probe", "probe_visible_multi"])
+def test_cpu_sessions_reach_probe_and_multi_probe(db, tdb, call, monkeypatch):
+    """The engine's ``probe`` (B4, all-ones mask by value) and
+    ``probe_visible_multi`` (B3, one ``[3, N]`` fetch) through the staging
+    buffers: results, per-query stats, EXPLAIN GRAFT, counters, backend
+    stats and the clock equal the reference engine's (Pallas, interpret
+    mode). The per-member loops of four sampled queries reach ``probe``;
+    two concurrent q5s reach ``probe_visible_multi``."""
+    if call == "probe":
+        rng = np.random.default_rng(42_003)
+        ref_qs = [ref_queries.sample_query(db, rng, arrival=0.01 * i) for i in range(4)]
+        cfg = dict(mode="graft", morsel_size=16384, member_major=False)
+    else:
+        ref_qs = _q5_pair(ref_queries.make_query, db)
+        cfg = dict(mode="graft", morsel_size=16384)
+    wrapper = "hash_probe_lens" if call == "probe" else "hash_probe_lens_multi64"
+    launched = []
+    orig = getattr(backends, wrapper)
+    monkeypatch.setattr(backends, wrapper, lambda *a: launched.append(a) or orig(*a))
+    s_ref, f_ref = _run(db, ref_qs, graftdb.connect, graftdb.EngineConfig,
+                        backend="pallas", **cfg)
+    port_qs = [queries.make_query(tdb, q.template, q.params, arrival=q.arrival) for q in ref_qs]
+    backend = TorchBackend(device="cpu")
+    s_port, f_port = _run(tdb, port_qs, graftdb_torch.connect, graftdb_torch.EngineConfig,
+                          backend=backend, **cfg)
+    for a, b in zip(f_ref, f_port):
+        ra, rb = a.result(), b.result()
+        assert set(ra) == set(rb)
+        for k in ra:
+            np.testing.assert_array_equal(rb[k], ra[k])
+        assert b.stats() == a.stats()
+        assert b.explain().render() == a.explain().render()
+    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert s_port.backend.stats() == s_ref.backend.stats()
+    assert s_port.now == s_ref.now
+    assert launched
+    if call == "probe":
+        assert all(a[3] == 0xFFFFFFFF for a in launched)  # the mask by value
+    assert all(a[0].data_ptr() == backend._staging.dev.data_ptr() for a in launched)

@@ -18,7 +18,9 @@ itself and drives ``graftdb_torch``. Phases:
    key; the segmented sum of 65,536 rows into 8 and 4,096 groups and of
    the main path's largest row count, 129,246, into 4,096, each beside
    ``index_add_``; phase 7 times its passes apart; and the four probes at
-   one key, whose event mean and device time are the launch floor). Probe
+   one key, whose event mean and device time are the launch floor; B5, on
+   no engine path, has its host time per call recorded at 65,536 keys and
+   its device time read in phase 7). Probe
    and insert outputs are integers (an insert's tables are compared where
    ``ok`` is 1, ``ok`` always) and the segmented sum fixes its order of
    additions, which its plain version repeats, so every comparison is
@@ -63,17 +65,22 @@ itself and drives ``graftdb_torch``. Phases:
    each attention kernel instance and the tensor-core instructions
    (``HGMMA``, ``HMMA``) and TMA loads in the library's SASS, and fails
    unless the bf16 kernel holds ``wgmma`` and every float32 instance holds
-   TF32 ``HMMA`` (``mma.sync``) and spills nothing;
+   TF32 ``HMMA`` (``mma.sync``) and spills nothing. It records the
+   recurrence kernel's ptxas register and spill lines, its launch (blocks
+   of the grid, threads of a block, and the blocks an SM holds at once)
+   and, from a profiler trace after the phase's event means, the kernels
+   one call launches: it fails unless that is one;
 7. the device time per call of the fused chain (its replay and phase 3's
    two-stage chain with grants, filters and a sink), of the probes B2, B4
-   and B3 (their replays) and of the four probes at one key, by kernel,
-   memset and copy; the segmented sum's phase-3 calls and its main-path
+   and B3 (their replays), of B5 at 65,536 keys, of the four probes at one
+   key and of the recurrence at ``[2, 4096, 4096]``, by kernel, memset and
+   copy; the segmented sum's phase-3 calls and its main-path
    replay: the two passes by device time; all from ``torch.profiler``
    traces, last, since a trace leaves every later launch slower on the
    host; then the segmented sum's event mean again after the traces. The
    four levels of the fused chain and of those three probes (event mean,
    host time per call, device time, engine call) go to ``launch_path`` in
-   ``chip_smoke.json``.
+   ``chip_smoke.json``, and so do B5's three (it has no engine call).
 
 Comparisons are exact except for flash attention, which adds its
 products in another order than its plain version and the full-softmax
@@ -198,6 +205,11 @@ EARLIER_REPLAY_MS = {
 #: phase 3's labels of the probes at one key: their event mean and device
 #: time are the launch floor, the least time a call of them takes
 FLOOR = "_n1"
+#: phase 3's calls beyond the probes at one key whose device time the last
+#: phase reads: the rich chain, and B5, which no engine path launches, at
+#: 65,536 keys (its three levels: event mean, host time per call, device
+#: time)
+TRACED_SF = ("fused_chain_rich", "hash_probe_lens_multi")
 
 
 def log(*a):
@@ -295,6 +307,12 @@ def trace_launch_path(report):
     for label, call in LAUNCH_TRACES:
         recs[label] = kernel_device_ms(call, 50)
         log(f"{label}: device ms per call {recs[label]}")
+    sf = report["launch_path_sf_shapes"]
+    b5 = report["launch_path"]["hash_probe_lens_multi"] = {
+        label: {"ms": sf[label]["ms"], "enqueue_ms": sf[label]["enqueue_ms"],
+                "device_ms": sum(recs[label].values())}
+        for label in ("hash_probe_lens_multi", "hash_probe_lens_multi" + FLOOR)}
+    log(f"hash_probe_lens_multi (on no engine path) at 65,536 keys and at one key: {b5}")
 
 
 def trace_seg_passes(report):
@@ -988,8 +1006,7 @@ def smoke(report):
     inputs = kernel_inputs(db)
     synth = {}
     for label, (kname, kin) in inputs.items():
-        rec = compare(kname, kin, label=label,
-                      trace=label == "fused_chain_rich" or label.endswith(FLOOR))
+        rec = compare(kname, kin, label=label, trace=label in TRACED_SF or label.endswith(FLOOR))
         synth[label] = rec
         lib = "" if rec["library_ms"] is None else f", index_add_ {rec['library_ms']:.4f} ms"
         ok = f" (ok {rec['ok']})" if "ok" in rec else ""
@@ -1006,7 +1023,8 @@ def smoke(report):
     report["kernels_sf_shapes"] = synth
     report["launch_path_sf_shapes"] = {
         label: {k: rec[k] for k in ("ms", "enqueue_ms", "bound_ms")}
-        for label, rec in synth.items() if inputs[label][0] in LAUNCH_PATH or label.endswith(FLOOR)}
+        for label, rec in synth.items()
+        if inputs[label][0] in LAUNCH_PATH or label in TRACED_SF or label.endswith(FLOOR)}
     del inputs
 
     # 4. the main path at the full scale: the default config, then opt-in
@@ -1186,6 +1204,60 @@ def recurrence_record(a, b, got):
     return rec
 
 
+def ptxas_report(stem):
+    """The ptxas register and spill lines of each kernel of one source's
+    library, by entry function."""
+    from repro_torch.kernels import _build
+
+    instances, name = {}, None
+    for line in _build.BUILD_LOG.get(stem, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            instances.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return instances
+
+
+def kernels_per_call(fn, iters=5):
+    """CUDA kernels (memsets and copies left out) that one call of ``fn``
+    launches, by name, from a ``torch.profiler`` trace of ``iters`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Mem"):
+            names[e.name] = names.get(e.name, 0) + 1
+    return {name: n / iters for name, n in names.items()}
+
+
+def linrec_build_record(shape, call):
+    """The recurrence's ptxas register and spill lines, its launch (blocks
+    of the grid, threads of a block and the blocks an SM holds at once,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the kernels one
+    call launches (memsets aside), by a profiler trace: it must be one. The
+    trace slows later launches on the host, so this comes after every event
+    mean of the phase."""
+    from repro_torch.kernels import linrec as lr
+
+    rec = {"ptxas": ptxas_report("linrec"), "launch": lr.launch_info(shape),
+           "kernels_per_call": kernels_per_call(call)}
+    if not rec["ptxas"]:
+        raise AssertionError("linrec: no ptxas report of its kernel")
+    for inst, lines in rec["ptxas"].items():
+        log(f"  ptxas linrec {inst}: {' / '.join(lines)}")
+    log(f"  linrec launch at {list(shape)}: {rec['launch']}; kernels per call "
+        f"{rec['kernels_per_call']}")
+    if sum(rec["kernels_per_call"].values()) != 1:
+        raise AssertionError(f"linrec: a call launches {rec['kernels_per_call']}, not one kernel")
+    return rec
+
+
 def attention_build_record():
     """The ptxas register and spill lines of each attention kernel instance,
     and the tensor-core instructions and TMA loads in the library's SASS
@@ -1194,12 +1266,7 @@ def attention_build_record():
     hold TF32 ``HMMA`` in its own function and spill nothing."""
     from repro_torch.kernels import _build
 
-    instances, name = {}, None
-    for line in _build.BUILD_LOG.get("flash_attention", "").splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif name and ("registers" in line or "spill" in line):
-            instances.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    instances = ptxas_report("flash_attention")
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path("flash_attention"))],
                           capture_output=True, text=True, check=True).stdout
@@ -1270,19 +1337,22 @@ def kernel_ops(report):
     log(f"kernel-ops linear_recurrence {rec['shape']}: equal to plain, within 1e-4 of the oracle "
         f"({rec['max_abs_err_oracle']:.3g}); {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
         f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']})")
-    del a, b, h
+    linrec_call = (lambda: ops.linear_recurrence(a, b, device="cuda"))
+    LAUNCH_TRACES.append((f"linrec {list(LINREC_SHAPE)}", linrec_call))
+    del h
 
     # the kernels microbench's shapes (benchmarks/run.py): q = k = v, causal
     bench = {}
     q = attention_inputs(rng, (4, 512, 64), "float32")[:1] * 3
     bench["flash_attention[4,512,64]"] = attention_record(*q, None, ops.attention(*q, device="cuda"))
-    a, b = recurrence_inputs(rng, (2, 1024, 128), lo=0.9, scale=1.0)
-    bench["linrec[2,1024,128]"] = recurrence_record(a, b, ops.linear_recurrence(a, b, device="cuda"))
+    ma, mb = recurrence_inputs(rng, (2, 1024, 128), lo=0.9, scale=1.0)
+    bench["linrec[2,1024,128]"] = recurrence_record(ma, mb, ops.linear_recurrence(ma, mb, device="cuda"))
     for label, rec in bench.items():
         log(f"microbench {label}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.6f} ms)")
     report["kernel_ops"] = {"calls": recs, "microbench": bench,
-                            "flash_attention_build": attention_build_record()}
+                            "flash_attention_build": attention_build_record(),
+                            "linrec_build": linrec_build_record(LINREC_SHAPE, linrec_call)}
 
     rows = []
     for kname, label in (("flash_attention", "recurrentgemma-9b bf16"),

@@ -33,9 +33,9 @@
 // chain of a home hit, the common case at 50% load: the home slot's second
 // word (B4's visibility word, B3's entry id) is loaded beside its key,
 // before the compare, and picked by a select that keeps the load ahead of
-// the branch. The rest is the host's: each takes its arguments by value
-// (B4's mask) or writes one output buffer (B3's [3, n]) so that the engine
-// uploads once through pinned memory and waits once.
+// the branch (B5 does not: its note says why). The rest is the host's: each
+// takes its arguments by value (B4's mask) or writes one output buffer
+// (B3's [3, n], B5's [2, n]) so that a caller uploads once and waits once.
 //
 // The batch insert builds the table the reference builds key by key in
 // batch order (key i takes the first EMPTY slot of its MAX_PROBE-slot
@@ -132,30 +132,36 @@ probe_lens_kernel(const int* __restrict__ keys, long long n, const int* __restri
     out[i] = found;
 }
 
-__global__ void probe_multi_kernel(const int* __restrict__ keys, long long n,
-                                   const int* __restrict__ tkeys,
-                                   const uint32_t* __restrict__ tvis, long long cap,
-                                   int* __restrict__ out_slot,
-                                   uint32_t* __restrict__ out_vis) {
+// B5, the multi-member probe over slot-indexed 32-bit words: per key the
+// matched slot (pre-visibility) and that slot's word, into the rows of one
+// [2, n] buffer. Unlike B4 and B3 it loads the word only after the compare:
+// a word loaded beside its key is one more random gather for every key that
+// misses at home, and at 65,536 keys (half of them misses) those gathers
+// cost more than the hits' shorter chain saves (2.3 us on the device
+// against 2.1 us on an H100 80GB HBM3 at 700 W; at one key 1.25 us against
+// 1.39 us).
+__global__ void __launch_bounds__(BLOCK)
+probe_multi_kernel(const int* __restrict__ keys, long long n, const int* __restrict__ tkeys,
+                   const uint32_t* __restrict__ tvis, long long cap, int* __restrict__ out) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const int key = keys[i];
+    const int key = __ldg(keys + i);
     const uint32_t mask = (uint32_t)(cap - 1);
     uint32_t pos = home_slot(key, mask);
     int found = -1;
     uint32_t vis = 0;
     for (int h = 0; h < MAX_PROBE; ++h) {
-        const int sk = tkeys[pos];
+        const int sk = __ldg(tkeys + pos);
         if (sk == key) {  // pre-visibility: the slot's whole word goes out
             found = (int)pos;
-            vis = tvis[pos];
+            vis = __ldg(tvis + pos);
             break;
         }
         if (sk == EMPTY_KEY) break;
         pos = (pos + 1) & mask;
     }
-    out_slot[i] = found;
-    out_vis[i] = vis;
+    out[i] = found;
+    out[n + i] = (int)vis;
 }
 
 // B2, the single-query probe of probe_visible. Its work is a chain of four
@@ -453,13 +459,12 @@ extern "C" int hp_probe_lens(const void* keys, const void* tkeys, const void* tv
     return (int)cudaGetLastError();
 }
 
-extern "C" int hp_probe_multi(const void* keys, const void* tkeys, const void* tvis,
-                              void* out_slot, void* out_vis, long long n, long long cap,
-                              void* stream) {
+// out: int32 [2, n], the rows slot, word
+extern "C" int hp_probe_multi(const void* keys, const void* tkeys, const void* tvis, void* out,
+                              long long n, long long cap, void* stream) {
     if (n > 0)
         probe_multi_kernel<<<grid_of(n), BLOCK, 0, (cudaStream_t)stream>>>(
-            (const int*)keys, n, (const int*)tkeys, (const uint32_t*)tvis, cap,
-            (int*)out_slot, (uint32_t*)out_vis);
+            (const int*)keys, n, (const int*)tkeys, (const uint32_t*)tvis, cap, (int*)out);
     return (int)cudaGetLastError();
 }
 

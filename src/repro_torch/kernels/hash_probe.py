@@ -24,7 +24,8 @@ tensor holding the same bits: torch has no full uint32 arithmetic, and
 AND / OR / equality are bit-identical either way. The query masks of
 ``hash_probe_lens`` and ``hash_probe_lens64`` are held on the host and go
 to the kernel by value; ``hash_probe_lens_multi64`` returns its three
-outputs as the rows of one ``[3, N]`` tensor. A wrapper runs its CUDA
+outputs as the rows of one ``[3, N]`` tensor, ``hash_probe_lens_multi`` its
+two as the rows of one ``[2, N]`` tensor. A wrapper runs its CUDA
 kernel for CUDA tensors and its plain PyTorch version (``*_plain``) for
 CPU tensors; it never falls back from one to the other.
 """
@@ -147,6 +148,7 @@ def hash_probe_lens(probe_keys, table_keys, table_vis, query_mask):
 
 # -- B5: pre-visibility slot + the slot's 32-bit word -------------------------
 def hash_probe_lens_multi_plain(probe_keys, table_keys, table_vis):
+    """The kernel's function, into the same rows of one ``[2, N]`` tensor."""
     keys = probe_keys.to(torch.int64)
     cap = table_keys.shape[0]
     pos = _hash(probe_keys, cap)
@@ -161,30 +163,36 @@ def hash_probe_lens_multi_plain(probe_keys, table_keys, table_vis):
         vis = torch.where(hit, table_vis[pos], vis)
         done = done | hit | empty
         pos = (pos + 1) & (cap - 1)
-    return found.to(torch.int32), vis
+    out = torch.empty((2, keys.shape[0]), dtype=torch.int32, device=keys.device)
+    out[0] = found
+    out[1] = vis
+    return out.unbind(0)
+
+
+@functools.cache
+def _hp_probe_multi():
+    return _build.bind("hash_probe", "hp_probe_multi", 4, 2, 1)
 
 
 def hash_probe_lens_multi(probe_keys, table_keys, table_vis):
     """Multi-member probe over slot-indexed 32-bit words: per key the
     matched slot (-1 = no match, pre-visibility) and that slot's packed
     visibility word (zero on a miss). ``table_vis`` ``[T]`` holds uint32
-    bits as int32. Returns int32 ``[N]`` slots and ``[N]`` words."""
+    bits as int32. The two come back as the rows of one int32 ``[2, N]``
+    tensor (``found._base``), on either device."""
     name = "hash_probe_lens_multi"
     _check(name, probe_keys.device, probe_keys, table_keys, table_vis)
     _check_cap(name, table_keys.shape[0])
     if probe_keys.device.type == "cpu":
         return hash_probe_lens_multi_plain(probe_keys, table_keys, table_vis)
-    found = torch.empty_like(probe_keys)
-    vis = torch.empty_like(probe_keys)
-    fn = _build.bind("hash_probe", "hp_probe_multi", 5, 2, 1)
-    err = fn(
-        probe_keys.data_ptr(), table_keys.data_ptr(), table_vis.data_ptr(),
-        found.data_ptr(), vis.data_ptr(), probe_keys.shape[0], table_keys.shape[0],
-        _build.stream_ptr(probe_keys.device),
+    out = torch.empty((2, probe_keys.shape[0]), dtype=torch.int32, device=probe_keys.device)
+    err = _hp_probe_multi()(
+        probe_keys.data_ptr(), table_keys.data_ptr(), table_vis.data_ptr(), out.data_ptr(),
+        probe_keys.shape[0], table_keys.shape[0], _build.stream_ptr(probe_keys.device),
     )
     _build.check(err, name)
     _build.count_launch(name)
-    return found, vis
+    return out.unbind(0)
 
 
 # -- B2: entry-indexed 64-bit lens, one query ----------------------------------

@@ -4,20 +4,23 @@ over channels, with h_0 = 0 — the RG-LRU primitive of recurrentgemma.
 ``linrec`` ports the reference's Pallas kernel
 (``src/repro/kernels/linrec.py`` ``_linrec_kernel``, a doubling scan of
 256-step chunks with a carry across its sequential grid) to hand-written
-CUDA (``csrc/linrec.cu``; the note at its top says what bounds it and how
-it is built).
+CUDA (``csrc/linrec.cu``: one launch, a chained scan that reads ``a`` and
+``b`` once; the note at its top says what bounds it and how it is built).
 
 The kernel fixes the order of every operation: the sequence is cut into
 chunks of ``CHUNK`` steps; each chunk's composition (the product of its
 ``a`` and its ``h`` started from 0) is built step by step, the carry into
-each chunk is walked chunk by chunk, and each chunk is scanned again from
-its carry. Every step rounds its product and its sum apart (no FMA). The
-plain version repeats that order exactly, so kernel and plain version give
-the same bits. Against the reference's doubling scan, results agree within
-float32 rounding (rtol/atol 1e-4 in the tests, the reference's own).
+each chunk is walked chunk by chunk over those compositions, and each chunk
+is scanned again from its carry. Every step rounds its product and its sum
+apart (no FMA). The plain version repeats that order exactly, so kernel and
+plain version give the same bits. Against the reference's doubling scan,
+results agree within float32 rounding (rtol/atol 1e-4 in the tests, the
+reference's own).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,7 +29,7 @@ from . import _build
 #: the reference's tile contract (``linrec.py`` BLOCK_S, BLOCK_D)
 SEQ_MULTIPLE = 256
 CHANNEL_MULTIPLE = 128
-#: steps per chunk of the kernel's three passes (divides SEQ_MULTIPLE)
+#: steps per chunk, one warp's in the kernel (divides SEQ_MULTIPLE)
 CHUNK = 64
 
 
@@ -43,7 +46,8 @@ def _check(a, b):
 
 
 def linrec_plain(a, b):
-    """The kernel's three passes in PyTorch, in the kernel's order."""
+    """The kernel's function in PyTorch, in the kernel's order: the chunks'
+    compositions, the carries walked over them, each chunk from its carry."""
     nb, s, d = a.shape
     nc = s // CHUNK
     a4, b4 = a.view(nb, nc, CHUNK, d), b.view(nb, nc, CHUNK, d)
@@ -65,6 +69,12 @@ def linrec_plain(a, b):
     return out.view(nb, s, d)
 
 
+@functools.cache
+def _lr_linrec():
+    return (_build.bind("linrec", "lr_scratch_words", 0, 3, restype="longlong"),
+            _build.bind("linrec", "lr_linrec", 4, 3, 1))
+
+
 def linrec(a, b):
     """``a``, ``b`` ``[B, S, D]`` -> float32 ``h`` ``[B, S, D]`` with
     h_t = a_t h_{t-1} + b_t and h_0 = 0. Inputs are cast to float32 first;
@@ -77,13 +87,23 @@ def linrec(a, b):
     if a.device.type != "cuda":
         raise ValueError(f"linrec: tensors on {a.device}; the kernel runs on a CUDA card")
     nb, s, d = a.shape
-    scratch = torch.empty(3, nb, s // CHUNK, d, dtype=torch.float32, device=a.device)
+    words, run = _lr_linrec()
     h = torch.empty_like(a)
-    fn = _build.bind("linrec", "lr_linrec", 6, 4, 1)
-    err = fn(
-        a.data_ptr(), b.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        scratch[2].data_ptr(), h.data_ptr(), nb, s, d, CHUNK, _build.stream_ptr(a.device),
-    )
+    scratch = torch.empty(words(nb, s, d), dtype=torch.int32, device=a.device)
+    err = run(a.data_ptr(), b.data_ptr(), h.data_ptr(), scratch.data_ptr(), nb, s, d,
+              _build.stream_ptr(a.device))
     _build.check(err, "linrec")
     _build.count_launch("linrec")
     return h
+
+
+def launch_info(shape):
+    """The launch the kernel makes for ``a`` of ``shape`` ``[B, S, D]``:
+    ``blocks`` (of the grid), ``threads`` (of a block) and
+    ``blocks_per_sm`` (how many blocks an SM holds at once). Reads the
+    card; launches nothing."""
+    nb, s, d = shape
+    out = torch.zeros(3, dtype=torch.int64)
+    err = _build.bind("linrec", "lr_launch_info", 1, 3)(out.data_ptr(), nb, s, d)
+    _build.check(err, "linrec launch_info")
+    return dict(zip(("blocks", "threads", "blocks_per_sm"), out.tolist()))

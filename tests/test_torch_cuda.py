@@ -345,6 +345,20 @@ def test_cuda_probe_multi_slot32_matches_plain(cuda, case):
     assert int((want[0] >= 0).sum()) > 0
 
 
+def test_cuda_probe_multi_rows_of_one_buffer(cuda):
+    """B5's card wrapper returns slot and word as the rows of one int32
+    ``[2, N]`` tensor, as the plain version does."""
+    probe, tk, tv, *_ = _probe_inputs("misses")
+    got = hash_probe.hash_probe_lens_multi(_t(probe, cuda), _t(tk, cuda), _t(tv, cuda))
+    buf = got[0]._base
+    assert buf is not None and buf.is_cuda and buf.dtype == torch.int32
+    assert tuple(buf.shape) == (2, len(probe))
+    for row, g in enumerate(got):
+        assert g._base is buf and g.data_ptr() == buf[row].data_ptr()
+    want = hash_probe.hash_probe_lens_multi_plain(_t(probe), _t(tk), _t(tv))
+    assert torch.equal(buf.cpu(), want[0]._base)
+
+
 def _insert_keys(case, n=3000):
     """(keys, capacity, expected ok) of one case."""
     rng = np.random.default_rng(7)
@@ -531,15 +545,44 @@ def test_cuda_flash_attention_f32_is_one_kernel(cuda, dh):
     assert counted == 1
 
 
-@pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 1024, 256), (3, 512, 384)])
-def test_cuda_linrec_matches_plain(cuda, b, s, d):
+def _linrec_inputs(b, s, d):
     rng = np.random.default_rng(s + d)
     a = torch.from_numpy(rng.uniform(0.7, 0.999, size=(b, s, d)).astype(np.float32))
     bb = torch.from_numpy((rng.normal(size=(b, s, d)) * 0.2).astype(np.float32))
+    return a, bb
+
+
+# blocks of 4 chunks (256 steps): S = 256 is one group, 768 three, 4,352
+# seventeen, 8,192 thirty-two a strip; D = 4,096 is 128 strips of a row
+@pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 1024, 256), (3, 512, 384), (1, 256, 4096),
+                                   (1, 768, 128), (2, 8192, 256), (1, 4352, 384)])
+def test_cuda_linrec_matches_plain(cuda, b, s, d):
+    a, bb = _linrec_inputs(b, s, d)
     got = linrec.linrec(a.to(cuda), bb.to(cuda))
     assert torch.equal(got.cpu(), linrec.linrec_plain(a, bb))
     on_card = linrec.linrec_plain(a.to(cuda), bb.to(cuda))
     assert torch.equal(on_card.cpu(), got.cpu())
+
+
+@pytest.mark.parametrize("s", [256, 768, 4096, 4352])
+def test_cuda_linrec_is_one_kernel(cuda, s):
+    """A call launches one kernel (beside the memset of its tickets and
+    flags), a block per group of 4 chunks of a 32-channel strip, and counts
+    one launch."""
+    a, bb = (t.to(cuda) for t in _linrec_inputs(1, s, 128))
+    before = _build.launch_counts().get("linrec", 0)
+    linrec.linrec(a, bb)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        linrec.linrec(a, bb)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith("Mem")]
+    assert len(names) == 1 and "lr_chain_kernel" in names[0], names
+    assert _build.launch_counts()["linrec"] == before + 2
+    info = linrec.launch_info((1, s, 128))
+    assert info["blocks"] == -(-s // 256) * 4 and info["threads"] == 128
+    assert info["blocks_per_sm"] >= 1
 
 
 def test_cuda_kernel_ops_wrappers_count_launches(cuda):

@@ -103,7 +103,8 @@ def test_attention_takes_numpy_inputs():
     np.testing.assert_allclose(_f32(got), want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 512, 256), (3, 1024, 128)])
+@pytest.mark.parametrize("b,s,d", [(1, 256, 128), (2, 512, 256), (3, 1024, 128),
+                                   (1, 8192, 128)])
 def test_linear_recurrence_matches_reference_kernel(b, s, d):
     a, bb = _recurrence(b, s, d, b + s + d)
     want = np.asarray(ref_ops.linear_recurrence(jnp.asarray(a), jnp.asarray(bb), interpret=True))

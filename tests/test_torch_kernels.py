@@ -219,6 +219,22 @@ def test_probe_multi64_rows_of_one_buffer(case):
     assert miss.any() and (buf[1:, torch.from_numpy(miss)] == 0).all()
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_probe_multi_rows_of_one_buffer(case):
+    """B5's slot and word come back as the rows of one int32 ``[2, N]``
+    tensor, equal to the reference's outputs, with zero words on misses."""
+    pk, tk, tv, _, _, _, _, _ = _probe_case(case)
+    want = [np.asarray(a) for a in ref_hp.hash_probe_lens_multi(pk, tk, tv, interpret=True)]
+    got = hash_probe.hash_probe_lens_multi(_t(pk), _t(tk), _t(tv))
+    buf = got[0]._base
+    assert buf is not None and buf.dtype == torch.int32 and tuple(buf.shape) == (2, len(pk))
+    for row, g in enumerate(got):
+        assert g._base is buf and g.data_ptr() == buf[row].data_ptr()
+    np.testing.assert_array_equal(buf.numpy(), np.stack([w.view(np.int32) for w in want]))
+    miss = want[0] < 0
+    assert miss.any() and (buf[1, torch.from_numpy(miss)] == 0).all()
+
+
 def test_probe_rejects_mixed_devices_and_dtypes():
     pk, tk, tv, _, _, _, _, m32 = _probe_case("misses")
     with pytest.raises(TypeError):

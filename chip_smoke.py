@@ -45,9 +45,33 @@ itself and drives ``graftdb_torch``. Phases:
    timed on the host, beside the legs' wall seconds; the four kernels of
    those calls also record their host time per call (``enqueue_ms``) on
    the replay and on phase 3's inputs;
+4b. reuse-and-fault path: a repeat-heavy trace at SF 1 (24 arrivals
+   drawn with Zipf(1.1) weights from a pool of 8 sampled instances, in 6
+   bursts of 4 arrivals 0.01 virtual s apart, bursts 100 virtual s
+   apart), in graft mode with ``retention="epoch"`` and
+   ``memory_budget=0``, so that every retirement evicts, in four legs:
+   ``reuse-live`` (no cache), ``reuse-cache`` (a cache that holds every
+   artifact), ``reuse-cache-optin`` (the same with the opt-in kernels)
+   and ``chaos`` (the cache and a ``FaultPlan`` of morsel, stall and
+   rehydrate faults). Launch counts are reset before each leg and read
+   after it. Every completed result equals the reference executor (rtol
+   1e-9; 1e-5 with the opt-in kernels) and the cache legs' results equal
+   the live leg's; both cache legs spill, hit and rehydrate; each leg with
+   a cache probes rehydrated states and launches B1 and B2, one of them
+   B4, and the opt-in leg launches B6 at least once per rehydrated hash
+   state that was probed; the chaos leg injects faults and
+   retries, and a query that does not complete ends cancelled, past its
+   deadline or failed. Each leg records its wall and virtual seconds,
+   cache, eviction and fault counters, the backend's host seconds in
+   ``_table_for``, ``_insert_keys`` and ``_batch_insert``, and the device
+   bytes allocated and the live probe tables after the leg and again after
+   the session is closed and collected;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
-   versions), in the default and the opt-in configuration, must give
-   identical results, counters, backend stats and virtual clocks;
+   versions), in the default and the opt-in configuration, and the repeat
+   trace with a cache whose small memory tier demotes artifacts to the
+   disk tier and the chaos leg's ``FaultPlan``, in both configurations,
+   must give identical results, statuses, counters, backend stats and
+   virtual clocks;
 6. kernel-ops path: ``repro_torch.kernels.ops.attention`` at
    recurrentgemma-9b's local attention (``[16, 4096, 256]``, window
    2,048) and starcoder2-7b's causal attention (``[36, 4096, 128]``),
@@ -764,9 +788,11 @@ class Recorder:
 
     It also times the backend's ``ENGINE_CALLS``: the engine's own calls
     that feed B1-B4 and the upkeep steps inside them, their number and
-    host seconds, taken by ``engine_times``."""
+    host seconds, taken by ``engine_times``. With ``replay=False`` it only
+    times them and keeps no call: the reuse phase reads device memory,
+    which kept tables would hold."""
 
-    def __init__(self):
+    def __init__(self, replay=True):
         import repro_torch.api.backends as backends
         from repro_torch.kernels.fused_chain import input_kinds
 
@@ -784,12 +810,13 @@ class Recorder:
             else:
                 timed = self._timed(orig, self.engine[name])
             setattr(backends.TorchBackend, name, timed)
-        for fn_name, name in (("hash_probe_lens", "hash_probe_lens"),
-                              ("hash_probe_lens64", "hash_probe_lens64"),
-                              ("hash_probe_lens_multi64", "hash_probe_lens_multi64"),
-                              ("chain_launch", "fused_chain"),
-                              ("hash_build_insert", "hash_build_insert"),
-                              ("seg_aggregate", "seg_aggregate")):
+        kept = (("hash_probe_lens", "hash_probe_lens"),
+                ("hash_probe_lens64", "hash_probe_lens64"),
+                ("hash_probe_lens_multi64", "hash_probe_lens_multi64"),
+                ("chain_launch", "fused_chain"),
+                ("hash_build_insert", "hash_build_insert"),
+                ("seg_aggregate", "seg_aggregate"))
+        for fn_name, name in kept if replay else ():
             orig = getattr(backends, fn_name)
             self.saved[fn_name] = orig
             setattr(backends, fn_name, self._wrap(orig, name))
@@ -866,6 +893,8 @@ def workload(db, n, seed):
 
 
 def run_session(db, qs, **cfg):
+    """One session over the workload; returns it, the futures and the wall
+    seconds of ``run()``."""
     import graftdb_torch
     from repro_torch.relational import queries
 
@@ -875,8 +904,12 @@ def run_session(db, qs, **cfg):
     )
     t0 = time.perf_counter()
     session.run()
-    wall = time.perf_counter() - t0
-    return session, [f.result() for f in futs], wall
+    return session, futs, time.perf_counter() - t0
+
+
+def outcomes(futs):
+    """Each query's result, or its status where it did not complete."""
+    return [f.result() if f.status == "done" else f.status for f in futs]
 
 
 def check_results(label, results, expected, rtol=1e-9):
@@ -912,15 +945,22 @@ def leg_summary(session, wall):
 
 def twin(db, qs, optin=False, **cfg):
     """The same workload on the card and on the CPU must give identical
-    runs, in the default config or (``optin``) with the opt-in kernels."""
+    runs, in the default config or (``optin``) with the opt-in kernels:
+    results, the status of each query that did not complete, counters,
+    backend stats and clocks."""
     from repro_torch.api.backends import TorchBackend
 
     runs = []
     for dev in ("cuda", "cpu"):
         where = dict(backend=TorchBackend(device=dev, **OPTIN)) if optin else dict(device=dev)
-        runs.append(run_session(db, qs, **where, **cfg))
-    (s_gpu, r_gpu, _), (s_cpu, r_cpu, _) = runs
+        session, futs, _ = run_session(db, qs, **where, **cfg)
+        runs.append((session, outcomes(futs)))
+    (s_gpu, r_gpu), (s_cpu, r_cpu) = runs
     for i, (a, b) in enumerate(zip(r_gpu, r_cpu)):
+        if isinstance(a, str) or isinstance(b, str):
+            if a != b:
+                raise AssertionError(f"twin/q{i}: status {a!r} on the card, {b!r} on the CPU")
+            continue
         if set(a) != set(b):
             raise AssertionError(f"twin/q{i}: columns differ")
         for k in a:
@@ -933,7 +973,341 @@ def twin(db, qs, optin=False, **cfg):
         raise AssertionError("twin: backend counters differ")
     if s_gpu.now != s_cpu.now:
         raise AssertionError(f"twin: clocks differ: {s_gpu.now!r} != {s_cpu.now!r}")
-    return {"now_s": s_gpu.now, "chain_launches": int(s_gpu.counters["kernel_chain_launches"])}
+    out = {"now_s": s_gpu.now, "chain_launches": int(s_gpu.counters["kernel_chain_launches"]),
+           "not_done": sum(isinstance(r, str) for r in r_gpu)}
+    out.update({k: s_gpu.counters[k] for k in REUSE_COUNTERS})
+    s_gpu.close()
+    s_cpu.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the reuse-and-fault path
+# ---------------------------------------------------------------------------
+
+#: the repeat-heavy trace: the shape of the reference benchmark's
+#: ``REPEAT_HEAVY`` (``benchmarks/fig10_open_loop.py``: each arrival drawn
+#: with Zipf(1.1) weights from a pool of concrete instances), cut to a
+#: smoke run: 24 arrivals from a pool of 8, in 6 bursts of 4 arrivals
+#: 0.01 virtual s apart. Bursts start ``BURST_GAP_S`` apart, longer than
+#: a burst's virtual makespan at SF 1 (the script checks it), so each
+#: burst's states retire, evict and spill before the next burst arrives
+REPEAT_POOL = 8
+REPEAT_ARRIVALS = 24
+REPEAT_ZIPF = 1.1
+BURST = 4
+BURST_STEP_S = 0.01
+BURST_GAP_S = 100.0
+#: every retirement evicts (and, with a cache, spills)
+EVICT_ALL = dict(mode="graft", retention="epoch", memory_budget=0)
+#: a memory tier that holds every artifact of the SF-1 trace
+REUSE_CACHE_BUDGET = 32 << 30
+#: the SF-0.1 twins' tiers: a small memory tier, so that artifacts demote
+#: to the disk tier's ``.npz`` files
+TWIN_CACHE = dict(reuse_cache_budget=1 << 20, reuse_disk_budget=4 << 30)
+#: the chaos leg's fault rates, those of ``tests/test_chaos_fuzz.py``'s
+#: ``FAULT_MIXES`` (morsel 0.01, stall 0.05, rehydrate 0.3), and its
+#: retry limit
+FAULT_RATES = {"morsel": 0.01, "stall": 0.05, "rehydrate": 0.3}
+FAULT_RETRY_LIMIT = 2
+#: kernels each cache leg must launch (B1, B2), and the kernel some cache
+#: leg must launch (B4): on this trace's templates (q1, q3, q4, q10) the
+#: engine's plain probe runs only where the chain and the lens probe
+#: decline, which at SF 1 happens in the chaos leg alone
+REUSE_KERNELS = ("fused_chain", "hash_probe_lens64")
+REUSE_SOME_LEG = ("hash_probe_lens",)
+#: the statuses a query that did not complete may end in
+TERMINAL = ("cancelled", "deadline", "failed")
+#: the engine counters each reuse leg and twin records
+REUSE_COUNTERS = ("cache_hits", "cache_spills", "cache_evictions", "cache_corrupt",
+                  "rehydrate_bytes", "cache_high_water_bytes", "cache_disk_high_water_bytes",
+                  "evictions", "evicted_bytes", "faults_injected", "fault_retries",
+                  "quarantined_states", "unfolds", "cancelled")
+
+
+def repeat_instances(db, qrng, n, pool, zipf=REPEAT_ZIPF):
+    """The reference benchmark's repeat-heavy instance stream
+    (``benchmarks/common.py`` ``repeat_instances``): a pool of sampled
+    (template, params) instances, each arrival drawn from it with
+    Zipf(rank) weights. Returns the pool and each arrival's pool index."""
+    from repro_torch.relational import queries
+
+    inst = []
+    for _ in range(pool):
+        q = queries.sample_query(db, qrng)
+        inst.append((q.template, q.params))
+    ranks = np.arange(1, pool + 1, dtype=np.float64)
+    w = ranks ** (-zipf)
+    w /= w.sum()
+    return inst, [int(i) for i in qrng.choice(pool, size=n, p=w)]
+
+
+def burst_arrival(i):
+    return (i // BURST) * BURST_GAP_S + (i % BURST) * BURST_STEP_S
+
+
+def repeat_trace(db, seed):
+    """The repeat trace's queries (arrivals in bursts), its pool and picks."""
+    from repro_torch.relational import queries
+
+    pool, picks = repeat_instances(db, np.random.default_rng(seed), REPEAT_ARRIVALS, REPEAT_POOL)
+    qs = [queries.make_query(db, *pool[k], arrival=burst_arrival(i)) for i, k in enumerate(picks)]
+    return qs, pool, picks
+
+
+def fault_plan():
+    import graftdb_torch
+
+    return graftdb_torch.FaultPlan(seed=SEED, schedule=FAULT_RATES,
+                                   retry_limit=FAULT_RETRY_LIMIT)
+
+
+def faults_by_site(plane):
+    """Draws and fired faults of each site: a fresh plane of the same plan
+    replays the draws (a fire is a pure function of seed, site and index)."""
+    from repro_torch.core.faults import SITES, FaultPlane
+
+    replay = FaultPlane(plane.plan, {})
+    return {site: {"draws": plane._calls[site],
+                   "fired": sum(replay.fire(site) for _ in range(plane._calls[site]))}
+            for site in SITES}
+
+
+def table_bytes(ent):
+    """Device bytes of one probe table and its entry-indexed mirrors."""
+    import torch
+
+    held = [ent.jkeys, ent.jentry, ent.jones, ent.jvlo, ent.jvhi, ent.jelo, ent.jehi]
+    held += [t for rec in (ent.ords or {}).values() for t in rec[:2]]
+    held += [rec[0] for rec in (ent.keycols or {}).values()]
+    return sum(t.numel() * t.element_size() for t in held if isinstance(t, torch.Tensor))
+
+
+def memory_record(backend):
+    """Device bytes allocated (now and at the peak since the last reset),
+    and the backend's live probe tables: all, those of evicted states, and
+    their device bytes."""
+    import torch
+
+    tables = list(backend._tables.items())
+    rec = {
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "live_tables": len(tables),
+        "evicted_state_tables": sum(1 for st, _ in tables if st.evicted),
+        "table_bytes": sum(table_bytes(e) for _, e in tables),
+        "evicted_table_bytes": sum(table_bytes(e) for st, e in tables if st.evicted),
+    }
+    del tables
+    return rec
+
+
+class Rehydrations:
+    """Counts the hash states the reuse plane rehydrates in a leg, and
+    those of them the backend builds a probe table for (their first probe:
+    a full rebuild, by B6 when the insert kernel is on)."""
+
+    def __init__(self):
+        import weakref
+
+        from repro_torch.api import backends
+        from repro_torch.core import reuse
+
+        self.mods = (reuse.ReusePlane, backends.TorchBackend)
+        self.orig = (reuse.ReusePlane.try_rehydrate_hash, backends.TorchBackend._table_for)
+        self.built, self.probed = weakref.WeakSet(), weakref.WeakSet()
+        self.n_built = self.n_probed = 0
+        rehydrate, table_for = self.orig
+
+        def counted_rehydrate(plane, *a, **kw):
+            st = rehydrate(plane, *a, **kw)
+            if st is not None:
+                self.built.add(st)
+                self.n_built += 1
+            return st
+
+        def counted_table_for(backend, state):
+            if state in self.built and state not in self.probed:
+                self.probed.add(state)
+                self.n_probed += 1
+            return table_for(backend, state)
+
+        reuse.ReusePlane.try_rehydrate_hash = counted_rehydrate
+        backends.TorchBackend._table_for = counted_table_for
+
+    def take(self):
+        out = {"hash_states_rehydrated": self.n_built, "rehydrated_states_probed": self.n_probed}
+        self.n_built = self.n_probed = 0
+        return out
+
+    def restore(self):
+        self.mods[0].try_rehydrate_hash, self.mods[1]._table_for = self.orig
+
+
+def reuse_leg(db, qs, expected, label, cfg, rtol, timer, rehydrations):
+    """One leg of the reuse phase: launch counts reset before it and read
+    after it, every completed result within ``rtol`` of the reference
+    executor, every other query in a terminal status, and the records of
+    ``reuse_phase``. Returns the record and the results (None where a query
+    did not complete)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    timer.engine_times()
+    rehydrations.take()
+    _build.reset_launch_counts()
+    session, futs, wall = run_session(db, qs, **cfg)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    engine = timer.engine_times()
+    statuses = [f.status for f in futs]
+    bad = [(i, s) for i, s in enumerate(statuses) if s != "done" and s not in TERMINAL]
+    if bad:
+        raise AssertionError(f"{label}: queries neither done nor terminal: {bad}")
+    done = [i for i, s in enumerate(statuses) if s == "done"]
+    if "faults" not in cfg and len(done) < len(futs):
+        raise AssertionError(f"{label}: {len(futs) - len(done)} queries did not complete")
+    results = [futs[i].result() if i in done else None for i in range(len(futs))]
+    worst = check_results(label, [results[i] for i in done], [expected[i] for i in done], rtol)
+    stats = [f.stats() for f in futs]
+    for b in range(0, len(futs), BURST):
+        ends = [stats[i]["t_complete"] for i in range(b, min(b + BURST, len(futs))) if i in done]
+        if b + BURST < len(futs) and ends and max(ends) >= qs[b + BURST].arrival:
+            raise AssertionError(f"{label}: burst at {qs[b].arrival} s ends at {max(ends)} s, "
+                                 f"after the next burst arrives")
+    makespans = [max([stats[i]["t_complete"] for i in range(b, b + BURST) if i in done],
+                     default=qs[b].arrival) - qs[b].arrival for b in range(0, len(futs), BURST)]
+    served = [i for i in done if stats[i]["served_from_cache"]]
+    lat = {i: futs[i].latency() for i in done}
+    c = session.counters
+    rec = {
+        "wall_s": wall,
+        "now_s": session.now,
+        "max_rel_err": worst,
+        "statuses": {s: statuses.count(s) for s in sorted(set(statuses))},
+        "counters": {k: c[k] for k in REUSE_COUNTERS},
+        "served_from_cache": len(served),
+        "latency_s": {
+            "cache_hit_arrivals": [lat[i] for i in served],
+            "other_arrivals": [lat[i] for i in done if i not in served],
+        },
+        "burst_makespan_s": makespans,
+        "launches": launches,
+        "engine": {k: engine[k] for k in ("_table_for", "_insert_keys", "_batch_insert")},
+        "backend": session.backend.stats(),
+        "memory_before": before,
+    }
+    rec.update(rehydrations.take())
+    if session._engine.faults is not None:
+        rec["faults_by_site"] = faults_by_site(session._engine.faults)
+    rec["memory_after"] = memory_record(session.backend)
+    backend = session.backend
+    session.close()
+    del session, futs, stats
+    gc.collect()
+    torch.cuda.synchronize()
+    rec["memory_after_gc"] = memory_record(backend)
+    del backend
+    log(f"reuse leg {label}: {rec['statuses']}, done results == refexec (rtol {rtol}, largest "
+        f"{worst:.3g}); wall {wall:.2f} s, clock {rec['now_s']!r} s; {rec['counters']}; "
+        f"served from cache {len(served)}; launches {launches}; "
+        f"_table_for {engine['_table_for']['seconds']:.4f} s, _insert_keys "
+        f"{engine['_insert_keys']['seconds']:.4f} s, _batch_insert "
+        f"{engine['_batch_insert']['seconds']:.4f} s; memory after {rec['memory_after']}, "
+        f"after gc {rec['memory_after_gc']}")
+    return rec, results
+
+
+def reuse_phase(db, report):
+    """Phase 4b: the repeat trace at SF 1 on the card in four legs, each
+    with ``retention="epoch"`` and ``memory_budget=0``, so that every
+    retirement evicts: ``reuse-live`` (no cache: eviction destroys),
+    ``reuse-cache`` (a cache that holds every artifact), the same with the
+    opt-in kernels, and ``chaos`` (the cache and ``fault_plan()``). Checks:
+    every completed result equals the reference executor (rtol 1e-9; 1e-5
+    with the opt-in kernels) and the cache legs' results the live leg's;
+    both cache legs spill, hit and rehydrate, some arrival is served from
+    the cache and the memory tier evicts nothing; each leg with a cache
+    probes rehydrated states and launches B1 and B2, and one of them B4;
+    B6 launches at least once per rehydrated hash state that was probed;
+    the chaos leg injects faults and retries, and every query that did not
+    complete ends in a terminal status."""
+    from repro_torch.api.backends import TorchBackend
+    from repro_torch.relational import queries, refexec
+
+    qs, pool, picks = repeat_trace(db, SEED)
+    log(f"repeat trace: pool {[t for t, _ in pool]}, picks {picks}")
+    t0 = time.perf_counter()
+    by_pool = [refexec.execute(db, queries.make_query(db, *inst).plan) for inst in pool]
+    expected = [by_pool[k] for k in picks]
+    out = {"reference_executor_s": time.perf_counter() - t0, "picks": picks,
+           "pool": [t for t, _ in pool], "burst_gap_s": BURST_GAP_S,
+           "fault_rates": FAULT_RATES, "fault_retry_limit": FAULT_RETRY_LIMIT,
+           "reuse_cache_budget": REUSE_CACHE_BUDGET, "legs": {}}
+    cache = dict(EVICT_ALL, reuse_cache_budget=REUSE_CACHE_BUDGET)
+    legs = (
+        ("reuse-live", dict(EVICT_ALL), 1e-9),
+        ("reuse-cache", cache, 1e-9),
+        ("reuse-cache-optin", dict(cache, backend=TorchBackend(device="cuda", **OPTIN)), 1e-5),
+        ("chaos", dict(cache, faults=fault_plan()), 1e-9),
+    )
+    timer = Recorder(replay=False)
+    rehydrations = Rehydrations()
+    results = {}
+    try:
+        for label, cfg, rtol in legs:
+            out["legs"][label], results[label] = reuse_leg(
+                db, qs, expected, label, cfg, rtol, timer, rehydrations)
+    finally:
+        rehydrations.restore()
+        timer.restore()
+    report["reuse"] = out
+    live = results["reuse-live"]
+    cache_legs = ("reuse-cache", "reuse-cache-optin", "chaos")
+    for label in cache_legs:
+        rec = out["legs"][label]
+        missing = [k for k in REUSE_KERNELS if rec["launches"].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        if rec["rehydrated_states_probed"] == 0:
+            raise AssertionError(f"{label}: no rehydrated hash state was probed")
+        if label == "chaos":
+            continue
+        check_results(f"{label} vs reuse-live", results[label], live,
+                      1e-5 if label.endswith("optin") else 1e-9)
+        for k in ("cache_spills", "cache_hits", "rehydrate_bytes"):
+            if rec["counters"][k] <= 0:
+                raise AssertionError(f"{label}: {k} is {rec['counters'][k]}")
+        if rec["served_from_cache"] == 0:
+            raise AssertionError(f"{label}: no arrival was served from the cache")
+        if rec["counters"]["cache_evictions"] > 0:
+            raise AssertionError(f"{label}: the memory tier evicted "
+                                 f"{rec['counters']['cache_evictions']} artifacts")
+    missing = [k for k in REUSE_SOME_LEG
+               if not any(out["legs"][label]["launches"].get(k, 0) for label in cache_legs)]
+    if missing:
+        raise AssertionError(f"no cache leg launched {missing}")
+    optin = out["legs"]["reuse-cache-optin"]
+    if optin["launches"].get("hash_build_insert", 0) < max(1, optin["rehydrated_states_probed"]):
+        raise AssertionError(
+            f"reuse-cache-optin: B6 launched {optin['launches'].get('hash_build_insert', 0)} "
+            f"times for {optin['rehydrated_states_probed']} rehydrated states probed")
+    chaos = out["legs"]["chaos"]["counters"]
+    if chaos["faults_injected"] <= 0 or chaos["fault_retries"] <= 0:
+        raise AssertionError(f"chaos: faults {chaos['faults_injected']}, "
+                             f"retries {chaos['fault_retries']}")
+    log(f"reuse phase: cache legs == live leg, cache hit, B1/B2 launched in each, B4 in "
+        f"{[k for k in cache_legs if out['legs'][k]['launches'].get('hash_probe_lens')]}; B6 "
+        f"{optin['launches'].get('hash_build_insert', 0)} launches for "
+        f"{optin['rehydrated_states_probed']} rehydrated states probed; chaos "
+        f"{out['legs']['chaos']['statuses']}, faults by site {out['legs']['chaos']['faults_by_site']}")
 
 
 # ---------------------------------------------------------------------------
@@ -962,7 +1336,8 @@ def run_legs(db, legs, required, label_launches, report):
 
     _build.reset_launch_counts()
     for label, cfg, lqs, want, rtol in legs:
-        session, results, wall = run_session(db, lqs, **cfg)
+        session, futs, wall = run_session(db, lqs, **cfg)
+        results = outcomes(futs)
         worst = check_results(label, results, want, rtol)
         summ = leg_summary(session, wall)
         summ["max_rel_err"] = worst
@@ -1093,7 +1468,11 @@ def smoke(report):
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "size": size,
         })
     report["kernels"] = rows
-    del recorder, db
+    del recorder
+
+    # 4b. the reuse-and-fault path at the full scale
+    reuse_phase(db, report)
+    del db
 
     # 5. twins: card and CPU give identical runs
     t0 = time.perf_counter()
@@ -1104,6 +1483,16 @@ def smoke(report):
         "graft_per_member": twin(tdb, tqs, mode="graft", member_major=False),
         "graft_opt_in": twin(tdb, tqs, optin=True, mode="graft"),
     }
+    rqs = repeat_trace(tdb, SEED)[0]
+    reuse_twin = dict(EVICT_ALL, **TWIN_CACHE)
+    report["twin"]["reuse_faults"] = twin(tdb, rqs, faults=fault_plan(), **reuse_twin)
+    report["twin"]["reuse_faults_opt_in"] = twin(tdb, rqs, optin=True, faults=fault_plan(),
+                                                 **reuse_twin)
+    for label in ("reuse_faults", "reuse_faults_opt_in"):
+        rec = report["twin"][label]
+        for k in ("cache_hits", "cache_disk_high_water_bytes", "faults_injected"):
+            if rec[k] <= 0:
+                raise AssertionError(f"twin {label}: {k} is {rec[k]}")
     log(f"twins SF {TWIN_SCALE}: cuda == cpu (results, counters, backend stats, clock) "
         f"in {time.perf_counter() - t0:.1f} s")
     return rows

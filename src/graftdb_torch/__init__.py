@@ -20,6 +20,7 @@ from repro_torch.api import (
     BoundaryExplain,
     EngineConfig,
     ExecutionBackend,
+    FaultPlan,
     GraftExplain,
     QueryCancelled,
     QueryFuture,
@@ -37,6 +38,7 @@ __all__ = [
     "connect",
     "Session",
     "EngineConfig",
+    "FaultPlan",
     "QueryCancelled",
     "QueryFuture",
     "GraftExplain",

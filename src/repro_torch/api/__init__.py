@@ -8,6 +8,7 @@ Everything under ``repro_torch.core`` is internal; this package
 (re-exported at top level as ``graftdb_torch``) is the supported surface.
 """
 
+from ..core.faults import FaultPlan
 from .backends import ExecutionBackend, ReferenceBackend, TorchBackend, resolve_backend
 from .config import EngineConfig
 from .explain import BoundaryExplain, GraftExplain, analyze_query
@@ -18,6 +19,7 @@ __all__ = [
     "connect",
     "Session",
     "EngineConfig",
+    "FaultPlan",
     "QueryCancelled",
     "QueryFuture",
     "GraftExplain",

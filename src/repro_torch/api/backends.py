@@ -800,6 +800,7 @@ class TorchBackend:
         n = state.keycode.n
         ent = self._tables.get(state)
         if ent is None:
+            self._forget_evicted()
             ent = _ProbeTable()
             self._tables[state] = ent
         if ent.bad:
@@ -809,6 +810,17 @@ class TorchBackend:
             if ent.bad:
                 return None
         return ent.jkeys, ent.jones, ent.slot_entry
+
+    def _forget_evicted(self) -> None:
+        """Drop the tables of evicted states. No lens observes an evicted
+        state again, but a completed query's handle keeps its attached
+        states alive, and with them their tables on the card, until the
+        session goes: under ``memory_budget=0`` every retirement evicts, so
+        the tables would pile up query by query. Swept before each new
+        table, so the tables on the card never outnumber the live states
+        and those evicted since the last new table."""
+        for state in [s for s in self._tables.keys() if s.evicted]:
+            del self._tables[state]
 
     def _insert_keys(self, ent: "_ProbeTable", keys, n: int) -> None:
         """Insert keys[ent.n:n] into the table, rebuilding at a larger

@@ -69,6 +69,15 @@ class EngineConfig:
       evictor retains (None = retain without bound). Pinned state — live
       lenses or queued-but-admissible ones — is never evicted; its
       footprint is bounded by admission control, not by this budget.
+    * ``reuse_cache_budget`` — bytes of the reuse plane's host-memory
+      artifact tier (DESIGN.md §12): evicted retired states spill into a
+      semantic artifact cache instead of being destroyed, and repeat
+      arrivals rehydrate them when the cost model favors reuse over
+      recompute. None (default) disables the reuse plane. Requires
+      ``retention='epoch'`` — refcount release never evicts.
+    * ``reuse_disk_budget`` — bytes of the optional on-disk artifact tier
+      (a temp dir): artifacts aging out of the memory tier demote here
+      instead of dropping. Requires ``reuse_cache_budget``.
     * ``admission`` — open-loop arrival admission: ``"always"`` admits
       every due arrival (seed behavior); ``"adaptive"`` admits freely below
       ``admission_max_inflight`` active queries and past that only arrivals
@@ -85,15 +94,19 @@ class EngineConfig:
       ``workers=1, partitions=1`` is byte-identical to the seed engine.
     * ``max_sleep_s`` — WallClock sleep cap: longer idle gaps are skipped
       virtually instead of blocking (None = sleep the full gap).
+    * ``faults`` — deterministic chaos injection (DESIGN.md §16): a seeded
+      ``core.faults.FaultPlan`` arms the engine's fault hooks (morsel /
+      rehydrate / stall sites; the exchange site waits for the mesh plane),
+      replayed bit-identically under the virtual clock. ``None`` (default)
+      disarms every hook.
     * ``member_major`` — the fused packed-mask morsel pipeline (DESIGN.md
       §11): per-morsel data-plane cost independent of the folded member
       count. False selects the retained per-member loops — the
       differential oracle the fused path is verified against (results,
       probe pair streams, and EXPLAIN GRAFT accounting are bit-identical).
 
-    The reference's ``reuse_cache_budget``, ``reuse_disk_budget``,
-    ``mesh``, ``batch_planning=True`` and ``faults`` belong to planes the
-    port does not have yet: setting any of them raises
+    The reference's ``mesh`` and ``batch_planning=True`` belong to planes
+    the port does not have yet: setting either raises
     ``NotImplementedError`` naming the ROADMAP item that ports it.
     """
 
@@ -160,9 +173,24 @@ class EngineConfig:
                     "policy frees state at zero refs — there is nothing to budget)"
                 )
         if self.reuse_cache_budget is not None:
-            raise _not_ported("reuse_cache_budget", "A2")
+            if not isinstance(self.reuse_cache_budget, int) or self.reuse_cache_budget < 0:
+                raise ValueError(
+                    f"reuse_cache_budget must be a non-negative int (bytes) or None, "
+                    f"got {self.reuse_cache_budget!r}"
+                )
+            if self.retention != "epoch":
+                raise ValueError(
+                    "reuse_cache_budget requires retention='epoch' (artifacts "
+                    "spill at eviction — the refcount policy never evicts)"
+                )
         if self.reuse_disk_budget is not None:
-            raise _not_ported("reuse_disk_budget", "A2")
+            if not isinstance(self.reuse_disk_budget, int) or self.reuse_disk_budget < 0:
+                raise ValueError(
+                    f"reuse_disk_budget must be a non-negative int (bytes) or None, "
+                    f"got {self.reuse_disk_budget!r}"
+                )
+            if self.reuse_cache_budget is None:
+                raise ValueError("reuse_disk_budget requires reuse_cache_budget")
         if self.admission not in ADMISSION_POLICIES:
             raise ValueError(
                 f"admission must be one of {ADMISSION_POLICIES}, got {self.admission!r}"
@@ -215,7 +243,12 @@ class EngineConfig:
         if self.batch_planning is not False:
             raise _not_ported("batch_planning", "A2")
         if self.faults is not None:
-            raise _not_ported("faults", "A2")
+            from ..core.faults import FaultPlan
+
+            if not isinstance(self.faults, FaultPlan):
+                raise ValueError(
+                    f"faults must be a FaultPlan or None, got {self.faults!r}"
+                )
 
     def _wall_clocked(self) -> bool:
         """The configured clock is real-time: the 'wall' name, the

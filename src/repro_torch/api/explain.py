@@ -229,9 +229,20 @@ def analyze_query(engine, query: Query) -> GraftExplain:
     agg_sig = aggregate_signature(agg)
     if agg_sig is not None and mode.agg_share != "none":
         existing = engine.agg_index.get(agg_sig)
-        if existing is not None and engine._agg_attachable(existing):
+        cached = False
+        if (
+            existing is None
+            and mode.agg_share == "full"
+            and getattr(engine, "reuse", None) is not None
+        ):
+            # reuse plane (§12): the identity would rehydrate from the
+            # artifact cache (cost-gated peek, read-only — nothing taken)
+            cached = (
+                engine.reuse.peek_agg(engine, query.plan, agg, agg_sig) is not None
+            )
+        if cached or (existing is not None and engine._agg_attachable(existing)):
             bounds = tuple(
-                _eliminated(engine, j, depth=0, served_from_cache=False)
+                _eliminated(engine, j, depth=0, served_from_cache=cached)
                 for j in all_boundaries(query.plan)
             )
             return GraftExplain(
@@ -239,7 +250,7 @@ def analyze_query(engine, query: Query) -> GraftExplain:
                 template=query.template,
                 mode=mode.name,
                 spine_scan=scan.table,
-                agg_decision="attach",
+                agg_decision="attach_cached" if cached else "attach",
                 boundaries=bounds,
             )
 
@@ -311,6 +322,20 @@ def _explain_boundary(engine, join: HashJoin, depth: int) -> BoundaryExplain:
         for s in engine.state_index.get(sig, ()):
             candidate = s
             break
+        if (
+            candidate is None
+            and mode.allow_represented
+            and getattr(engine, "reuse", None) is not None
+        ):
+            # reuse plane (§12): mirror the admission-time cache consult
+            # with a ghost rehydration — an unregistered throwaway state
+            # carrying the artifact's coverage + entries, so the ladder
+            # below scores it exactly like the live candidate admission
+            # would create. Read-only: the artifact stays cached.
+            sel = engine.reuse.select_hash(engine, sig, b_q, demand)
+            if sel is not None:
+                candidate = engine.reuse.ghost_hash(sel[0])
+                cached = candidate is not None  # None: corrupt at load
     retired = bool(candidate is not None and candidate.retired_epoch is not None)
 
     # Represented extent: proven containment against allowed coverage.

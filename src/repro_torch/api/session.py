@@ -47,6 +47,9 @@ class Session:
             retention=self.config.retention,
             memory_budget=self.config.memory_budget,
             member_major=self.config.member_major,
+            reuse_cache_budget=self.config.reuse_cache_budget,
+            reuse_disk_budget=self.config.reuse_disk_budget,
+            faults=self.config.faults,
         )
         admission = self.config.make_admission()
         if self.config.workers == 1:
@@ -215,7 +218,8 @@ class Session:
     def close(self) -> None:
         """Release everything the session retains, deterministically.
 
-        Idempotent. Drops external (queued-admission) pins and, under
+        Idempotent. Drops external (queued-admission) pins, flushes the
+        artifact store — no further spills, disk tier deleted — and, under
         epoch retention, force-evicts every retired state so retained
         bytes drop to zero. Benchmarks sweeping many sessions no longer
         leak engines across sweep points; ``with connect(...) as s:``
@@ -241,6 +245,11 @@ class Session:
         doomed = {h.qid for h in active}
         for h in active:
             eng.cancel_query(h, doomed=doomed)
+        if eng.reuse is not None:
+            # flush BEFORE the final eviction pass so the force-evicted
+            # states are destroyed, not respilled into a store we just
+            # emptied
+            eng.reuse.close()
         if eng.retention == "epoch":
             eng.enforce_memory_budget(0)
 

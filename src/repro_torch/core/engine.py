@@ -26,9 +26,11 @@ import numpy as np
 
 from ..relational.table import Database
 from .descriptors import StateSignature, aggregate_signature
+from .faults import FaultPlan, FaultPlane
 from .grafting import all_boundaries, estimate_demand, plan_spine, resolve_boundary
 from .plans import Aggregate, OrderBy, Query
 from .predicates import TRUE, Conjunction
+from .reuse import ReusePlane
 from .runtime import AggGate, AggSink, Gate, Member, Pipeline, ProbeOp, ScanNode
 from .state import SharedAggregateState, SharedHashBuildState, StateLifecycle
 
@@ -135,6 +137,9 @@ class GraftEngine:
         retention: str = "refcount",
         memory_budget: Optional[int] = None,
         member_major: bool = True,
+        reuse_cache_budget: Optional[int] = None,
+        reuse_disk_budget: Optional[int] = None,
+        faults: Optional[FaultPlan] = None,
     ):
         self.db = db
         self.mode = MODES[mode]
@@ -246,6 +251,32 @@ class GraftEngine:
         ):
             self.counters[k] = 0.0
         self.lifecycle = StateLifecycle(retention, memory_budget, self.counters)
+        # Fault plane (§16): None keeps every hook compiled out of the hot
+        # paths — the faults=None engine is fingerprint-identical to the
+        # pre-fault-plane engine (locked by the chaos overhead leg).
+        self.faults: Optional[FaultPlane] = None
+        if faults is not None:
+            if not isinstance(faults, FaultPlan):
+                raise ValueError(
+                    f"faults must be a FaultPlan or None, got {faults!r}"
+                )
+            self.faults = FaultPlane(faults, self.counters)
+        # Reuse plane (DESIGN.md §12): evicted retired states spill into a
+        # tiered artifact cache instead of being destroyed. Only meaningful
+        # under epoch retention — refcount release never evicts.
+        self.reuse: Optional[ReusePlane] = None
+        if reuse_cache_budget is not None:
+            if retention != "epoch":
+                raise ValueError("reuse_cache_budget requires retention='epoch'")
+            self.reuse = ReusePlane(
+                self.cost_model,
+                reuse_cache_budget,
+                disk_budget=reuse_disk_budget,
+                counters=self.counters,
+                faults=self.faults,
+            )
+        elif reuse_disk_budget is not None:
+            raise ValueError("reuse_disk_budget requires reuse_cache_budget")
         self.demand_cache: Dict = {}
         # Live-state generation counter (§10/§15): bumped whenever the
         # admission-visible indexes change (submission registers states /
@@ -344,6 +375,13 @@ class GraftEngine:
         agg_sig = aggregate_signature(agg)
         if agg_sig is not None and self.mode.agg_share != "none":
             existing = self.agg_index.get(agg_sig)
+            if existing is None and self.reuse is not None and self.mode.agg_share == "full":
+                # reuse plane (§12): an evicted-but-cached aggregate identity
+                # rehydrates and the plan collapses onto it exactly as onto a
+                # never-evicted retained identity
+                existing = self.reuse.try_rehydrate_agg(
+                    self, handle, query.plan, agg, agg_sig
+                )
             if existing is not None and self._agg_attachable(existing):
                 existing.attach(handle.qid)
                 self.lifecycle.revive(existing)
@@ -566,6 +604,47 @@ class GraftEngine:
             self.unfold(rh)
         self.check_activations()
         return True
+
+    def quarantine_state(self, state) -> int:
+        """Tombstone one shared hash state after fault escalation (§16):
+        every impacted active query is torn down (their producers on OTHER
+        states still hand off to outside beneficiaries), the state dies
+        through the §10 eviction path — but never spills into the reuse
+        plane, its fragments are suspect — and the impacted queries unfold
+        to isolated execution. A query that already unfolded once fails
+        instead (bounded degradation ⇒ chaos runs terminate). Returns the
+        number of impacted queries."""
+        if state.quarantined or state.evicted:
+            return 0
+        state.quarantined = True
+        impacted = [
+            h for h in self.active_handles
+            if not h.done and h.status == "active" and state in h.attached_states
+        ]
+        impacted.sort(key=lambda h: h.qid)
+        doomed = {h.qid for h in impacted}
+        riders: List[QueryHandle] = []
+        for h in impacted:
+            riders.extend(self._teardown(h, doomed))
+        self.lifecycle.drop(state)
+        state.evicted = True
+        self._remove_from_indexes(state)
+        self.counters["quarantined_states"] += 1
+        self.state_gen += 1
+        for h in impacted:
+            if h.done or h.status != "active":
+                continue
+            if h.degraded:
+                self.cancel_query(h, "failed")
+            else:
+                h.degraded = True
+                self.counters["unfolds"] += 1
+                self._install_isolated(h)
+        for rh in riders:
+            if rh.qid not in doomed:
+                self.unfold(rh)
+        self.check_activations()
+        return len(impacted)
 
     def _install_isolated(self, handle: QueryHandle) -> None:
         """Re-install a torn-down handle under a temporary isolated-mode
@@ -839,6 +918,11 @@ class GraftEngine:
             )
         self.counters["evictions"] += 1
         self.counters["evicted_bytes"] += state.nbytes()
+        if self.reuse is not None:
+            # spill instead of destroy (§12): serialize the victim into the
+            # artifact cache before tombstoning. The live object still dies
+            # — §10's no-lens-observes-evicted invariant is untouched.
+            self.reuse.spill(state)
         self.lifecycle.drop(state)
         state.evicted = True
         self._remove_from_indexes(state)
@@ -870,9 +954,9 @@ class GraftEngine:
         out["live_agg_states"] = len(self.agg_index)
         out["retained_states"] = len(self.lifecycle.retired)
         out["retention"] = self.retention
-        # the reuse and mesh planes are not ported yet: their gauges stay
-        # zero so stats dicts keep the reference's shape
-        out["cached_artifacts"] = 0
+        out["cached_artifacts"] = len(self.reuse.store) if self.reuse is not None else 0
+        # the mesh plane is not ported yet: its gauge stays zero so stats
+        # dicts keep the reference's shape
         out["mesh_data_shards"] = 0
         return out
 

@@ -315,6 +315,12 @@ def resolve_boundary(engine, handle, join: HashJoin) -> Attachment:
         for s in engine.state_index.get(sig, ()):  # exact signature match
             candidate = s
             break
+        if candidate is None and mode.allow_represented and engine.reuse is not None:
+            # reuse plane (§12): no live candidate — a cached artifact under
+            # the same signature may rehydrate (cost-gated). The rehydrated
+            # state registers under the signature and the ladder below
+            # treats it exactly like a never-evicted retained state.
+            candidate = engine.reuse.try_rehydrate_hash(engine, handle, sig, b_q, demand)
 
     # -- Represented extent: proven containment against allowed coverage
     if candidate is not None and mode.allow_represented and b_q is not None:

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 from .engine import GraftEngine, QueryHandle
 from .grafting import candidate_states, graft_potential
 from .plans import Query
+from .reuse import reuse_potential
 from .runtime import Member, Pipeline, ScanNode
 
 # ---------------------------------------------------------------------------
@@ -210,22 +211,24 @@ class AdmissionController:
     """Per-arrival admission decision for the open-loop queue.
 
     ``decide(engine, query) -> (verdict, reason)`` where verdict is
-    ``'admit'`` or ``'defer'`` and reason labels the admitted path:
-    ``'graft'`` (rides live shared state) or ``'fresh'`` (isolated
-    recompute through an ordinary plan). The reuse plane's ``'cache'``
-    verdict is not ported yet. The adaptive policy admits freely below
-    ``max_inflight`` active queries; past it, only arrivals whose sharing
-    potential — the demand-weighted fraction of their isolated plan that
-    existing shared state (``graft_potential``) would absorb — reaches
-    ``share_threshold`` are admitted (their marginal work is small, and
-    their lens pins state the evictor would otherwise reclaim).
-    Everything else queues until load drops; the
+    ``'admit'`` or ``'defer'`` and reason labels the admitted path — the
+    arrival's three-way cost decision (§12): ``'graft'`` (rides live
+    shared state), ``'cache'`` (a spilled artifact rehydrates and serves
+    it), or ``'fresh'`` (isolated recompute through an ordinary plan). The
+    adaptive policy admits freely below ``max_inflight`` active queries;
+    past it, only arrivals whose sharing potential — the demand-weighted
+    fraction of their isolated plan that existing shared state
+    (``graft_potential``) or cost-winning cached artifacts
+    (``reuse_potential``) would absorb — reaches ``share_threshold`` are
+    admitted (their marginal work is small, and their lens pins state the
+    evictor would otherwise reclaim / consumes an artifact before the
+    cache ages it out). Everything else queues until load drops; the
     Runner pins a deferred arrival's candidate states
     (``candidate_states``) so the evictor cannot reclaim coverage a
     queued-but-admissible lens is waiting to observe.
 
-    Decisions depend only on engine state (live indexes, which change
-    exactly at submissions/completions), so
+    Decisions depend only on engine state (live indexes + the artifact
+    cache, both of which change exactly at submissions/completions), so
     the whole pool stays a deterministic simulation under any
     ``PoolClock`` schedule and the Runner's drain memo stays valid.
     """
@@ -243,14 +246,14 @@ class AdmissionController:
         # generation (bumped at state attach/retire/evict): a deep FIFO
         # queue used to rescan every arrival's graft_potential on every
         # queue-length change even though its inputs were untouched
-        self._pot_memo: Dict[int, Tuple[Tuple[int, float, float], float]] = {}
+        self._pot_memo: Dict[int, Tuple[Tuple[int, float, float], float, float]] = {}
 
-    def potential(self, engine: GraftEngine, query: Query) -> float:
-        """Memoized ``graft_potential`` of one arrival.
+    def potentials(self, engine: GraftEngine, query: Query) -> Tuple[float, float]:
+        """Memoized ``(graft_potential, reuse_potential)`` of one arrival.
 
         The memo key is ``(state_gen, submitted, completed)`` — exactly the
-        state a verdict reads (live indexes + in-flight progress at the
-        drain granularity), so a hit returns the same value
+        state a verdict reads (live indexes + artifact cache + in-flight
+        progress at the drain granularity), so a hit returns the same value
         a recomputation would. ``admission_evals`` counts only the real
         evaluations (the regression suite pins scan counts on it)."""
         gen = (
@@ -260,19 +263,26 @@ class AdmissionController:
         )
         hit = self._pot_memo.get(query.qid)
         if hit is not None and hit[0] == gen:
-            return hit[1]
+            return hit[1], hit[2]
         live = graft_potential(engine, query)
+        cached = reuse_potential(engine, query)
         engine.counters["admission_evals"] += 1
-        self._pot_memo[query.qid] = (gen, live)
-        return live
+        self._pot_memo[query.qid] = (gen, live, cached)
+        return live, cached
 
     def decide(
         self,
         engine: GraftEngine,
         query: Query,
     ) -> Tuple[str, str]:
-        potential = self.potential(engine, query)
-        reason = "fresh" if potential <= 0.0 else "graft"
+        live, cached = self.potentials(engine, query)
+        potential = max(live, cached)
+        if potential <= 0.0:
+            reason = "fresh"
+        elif cached > live:
+            reason = "cache"
+        else:
+            reason = "graft"  # live state dominates: no rehydration cost
         if len(engine.active_handles) < self.max_inflight:
             self._pot_memo.pop(query.qid, None)
             return ("admit", reason)
@@ -335,9 +345,11 @@ class Runner:
         # Called with the query right before each admission (the Session
         # facade captures EXPLAIN GRAFT snapshots through this).
         self.submit_hook: Optional[Callable[[Query], None]] = None
-        # per-query lifecycle (§16): virtual-time deadlines enforced at
-        # decision-step boundaries, and the terminal reason of arrivals
-        # cancelled before they ever got a handle.
+        # fault tolerance + per-query lifecycle (§16): the engine's fault
+        # plane (None = hooks disarmed, zero overhead), virtual-time
+        # deadlines enforced at decision-step boundaries, and the terminal
+        # reason of arrivals cancelled before they ever got a handle.
+        self.faults = getattr(engine, "faults", None)
         self.deadlines: Dict[int, float] = {}
         self.cancelled_qids: Dict[int, str] = {}
 
@@ -504,6 +516,58 @@ class Runner:
             self._after_events(on_complete)
         return acted
 
+    def _fault_gate(self, node, part, wclock, on_complete) -> bool:
+        """§16 fault hooks around one morsel advance. True ⇒ the morsel may
+        execute. A stall only delays the worker; a fault that survives the
+        bounded retries escalates — the morsel never runs, no state
+        mutates, and the impacted queries quarantine/unfold/fail."""
+        fp = self.faults
+        stall = fp.stall()
+        if stall > 0.0:
+            wclock.tick(stall)
+        # the mesh plane (and its "exchange" site) is not ported yet: every
+        # shared morsel advance draws the "morsel" site
+        if fp.attempt("morsel", wclock):
+            return True
+        self._escalate(node, part, on_complete)
+        return False
+
+    def _escalate(self, node, part, on_complete) -> None:
+        """Retry exhaustion at one (scan × partition) unit. Every pipeline
+        that would have consumed the faulted morsel is affected: shared
+        build targets are quarantined (their fragments are suspect — the
+        engine tombstones them and unfolds the attached queries), and
+        main-pipeline queries not already handled by a quarantine unfold
+        to isolated execution (first escalation) or fail (second)."""
+        engine = self.engine
+        states: List = []
+        qids = set()
+        for pipeline in list(node.pipelines):
+            if not pipeline.active_members_for(part):
+                continue
+            bt = pipeline.build_target
+            if bt is not None:
+                if bt.state not in states:
+                    states.append(bt.state)
+            else:
+                qids.update(m.qid for m in pipeline.active_members_for(part))
+        handled = set()
+        for st in states:
+            handled.update(
+                h.qid for h in engine.active_handles if st in h.attached_states
+            )
+            engine.quarantine_state(st)
+        for qid in sorted(qids - handled):
+            h = engine.handles.get(qid)
+            if h is None or h.done or h.status != "active":
+                continue
+            if h.degraded:
+                engine.cancel_query(h, "failed")
+            else:
+                engine.unfold(h)
+        self._drain_ver = None
+        self._after_events(on_complete)
+
     def worker_stats(self) -> Dict[str, object]:
         """Per-worker utilization of the run so far (QueryFuture.stats)."""
         makespan = max(c.now for c in self.clocks)
@@ -585,6 +649,10 @@ class Runner:
                 self._admit_due(wclock.now, on_complete)
                 if self._apply_deadlines(wclock.now, on_complete):
                     continue  # the unit may be gone: re-extract
+                if self.faults is not None and not self._fault_gate(
+                    node, part, wclock, on_complete
+                ):
+                    continue
                 cost = node.advance(engine, part)
                 wclock.tick(cost)
                 self.busy_s[wi] += cost

@@ -666,3 +666,115 @@ def test_cuda_seg_launch_fills_buffers(cuda):
     assert _build.launch_counts()["seg_aggregate"] == before + 1
     want = seg_aggregate.seg_aggregate_plain(codes, vals, 37)
     assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the reuse and fault planes on the card
+# ---------------------------------------------------------------------------
+
+_REPEAT = [
+    ("q3", {"segment": 1.0, "date": 750.0}),
+    ("q6", {"date": 400.0, "discount": 0.05, "quantity": 25.0}),
+    ("q3", {"segment": 1.0, "date": 750.0}),
+    ("q3", {"segment": 1.0, "date": 800.0}),
+    ("q3", {"segment": 1.0, "date": 750.0}),
+    ("q10", {"date": 500.0}),
+    ("q3", {"segment": 1.0, "date": 800.0}),
+    ("q10", {"date": 500.0}),
+]
+
+
+def _small_db():
+    from repro_torch.relational import tpch
+
+    return tpch.get_database(0.01, seed=7)
+
+
+@pytest.mark.parametrize("optin", [False, True], ids=["default", "opt_in"])
+def test_cuda_reuse_fault_twin(cuda, optin):
+    """A repeat trace with every retirement spilling into a cache whose
+    small memory tier demotes to the disk tier, under a FaultPlan: the card
+    and the CPU give identical statuses, results, counters, backend stats
+    and clocks."""
+    import graftdb_torch
+    from repro_torch.api.backends import TorchBackend
+    from repro_torch.relational import queries
+
+    db = _small_db()
+    runs = []
+    for dev in ("cuda", "cpu"):
+        flags = dict(use_insert_kernel=True, use_agg_kernel=True) if optin else {}
+        session = graftdb_torch.connect(db, graftdb_torch.EngineConfig(
+            mode="graft", morsel_size=2048, backend=TorchBackend(device=dev, **flags),
+            retention="epoch", memory_budget=0, reuse_cache_budget=20_000,
+            reuse_disk_budget=64_000_000,
+            faults=graftdb_torch.FaultPlan(
+                seed=7, schedule={"morsel": 0.02, "stall": 0.05, "rehydrate": 0.3}),
+        ))
+        _build.reset_launch_counts()
+        futs = session.submit_all([
+            queries.make_query(db, t, p, arrival=float(i)) for i, (t, p) in enumerate(_REPEAT)
+        ])
+        session.run()
+        runs.append((session, futs, _build.launch_counts()))
+    (s_gpu, f_gpu, launches), (s_cpu, f_cpu, _) = runs
+    assert [f.status for f in f_gpu] == [f.status for f in f_cpu]
+    for a, b in zip(f_gpu, f_cpu):
+        if a.status == "done":
+            for k, v in a.result().items():
+                np.testing.assert_array_equal(v, b.result()[k])
+    assert dict(s_gpu.counters) == dict(s_cpu.counters)
+    assert s_gpu.backend.stats() == s_cpu.backend.stats()
+    assert s_gpu.now == s_cpu.now
+    assert s_gpu.counters["cache_hits"] > 0 and s_gpu.counters["cache_disk_high_water_bytes"] > 0
+    assert s_gpu.counters["faults_injected"] > 0
+    assert launches.get("fused_chain", 0) > 0
+    if optin:
+        assert launches.get("hash_build_insert", 0) > 0
+    for s in (s_gpu, s_cpu):
+        s.close()
+
+
+def test_cuda_rehydrated_table_by_insert_kernel_matches_host(cuda):
+    """A rehydrated state's probe table built by the batch-insert kernel
+    (B6) and by the host election return the same entries (and visibility
+    words) for every probe key through B3 and B4, and those of the
+    never-evicted state whose table grew morsel by morsel."""
+    import graftdb_torch
+    from repro_torch.api.backends import TorchBackend
+    from repro_torch.core.reuse import ReusePlane, hash_state_fingerprint
+    from repro_torch.relational import queries
+
+    db = _small_db()
+    session = graftdb_torch.connect(db, graftdb_torch.EngineConfig(
+        mode="graft", morsel_size=256, retention="epoch"))
+    session.submit_all([queries.make_query(db, "q3", {"segment": 1.0, "date": 750.0}),
+                        queries.make_query(db, "q10", {"date": 500.0}, arrival=0.01)])
+    session.run()
+    eng = session.engine
+    states = [s for lst in eng.state_index.values() for s in lst if s.keycode.n > 1024]
+    assert states
+    plane = ReusePlane(eng.cost_model, 1 << 30)
+    host, kernel = TorchBackend(device="cuda"), TorchBackend(device="cuda", use_insert_kernel=True)
+    rng = np.random.default_rng(3)
+    for st in states:
+        assert plane.spill(st)
+        extents = [st.extents[eid] for eid in sorted(st.extents)]
+        art = plane.store.take(hash_state_fingerprint(st.sig, extents))
+        twin = plane._build_hash(10_000 + st.state_id, art, eng.n_partitions, None)
+        keys = np.concatenate([st.keycode.data[: st.keycode.n],
+                               rng.integers(0, int(st.keycode.data.max()) + 1000, 4096)])
+        rng.shuffle(keys)
+        _build.reset_launch_counts()
+        for call in ("probe_visible_multi", "probe"):
+            by_kernel = getattr(kernel, call)(twin, keys)
+            by_host = getattr(host, call)(twin, keys)
+            grown = getattr(session.backend, call)(st, keys)
+            for a, b, c in zip(by_kernel, by_host, grown):
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(a, c)
+        launches = _build.launch_counts()
+        assert launches.get("hash_build_insert", 0) == 1
+        assert launches.get("hash_probe_lens", 0) == 3
+        assert launches.get("hash_probe_lens_multi64", 0) == 3
+    session.close()

@@ -200,9 +200,6 @@ def test_config_defaults_to_the_card():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(faults=object()),
-        dict(retention="epoch", reuse_cache_budget=1 << 20),
-        dict(reuse_disk_budget=1 << 20),
         dict(batch_planning=True),
         dict(mesh="smoke"),
     ],
@@ -265,6 +262,7 @@ import numpy as np
 import torch
 import graftdb_torch
 from graftdb_torch import EngineConfig
+from repro_torch.core import costmodel, dag, faults, reuse
 from repro_torch.kernels import flash_attention, linrec, ops, ref, seg_aggregate
 from repro_torch.relational import queries, refexec, tpch
 
@@ -278,6 +276,16 @@ for f in futs:
     for k, v in f.result().items():
         np.testing.assert_allclose(np.asarray(v, float), np.asarray(want[k], float), rtol=1e-9)
 assert session.counters["kernel_chain_launches"] > 0
+cached = graftdb_torch.connect(db, EngineConfig(
+    mode="graft", device="cpu", morsel_size=2048, retention="epoch", memory_budget=0,
+    reuse_cache_budget=1 << 24, reuse_disk_budget=1 << 24,
+    faults=graftdb_torch.FaultPlan(seed=3, schedule={"stall": 0.2, "rehydrate": 0.2}),
+))
+for t in (0.0, 10.0):
+    cached.submit_all([queries.make_query(db, "q3", {"segment": 1.0, "date": 750.0}, arrival=t)])
+    cached.run()
+assert cached.counters["cache_spills"] > 0
+cached.close()
 q = rng.normal(size=(2, 128, 32)).astype(np.float32)
 out = ops.attention(q, q, q, window=64, device="cpu")
 torch.testing.assert_close(out, ref.flash_attention_ref(*[torch.from_numpy(q)] * 3, window=64),

@@ -66,12 +66,43 @@ itself and drives ``graftdb_torch``. Phases:
    ``_table_for``, ``_insert_keys`` and ``_batch_insert``, and the device
    bytes allocated and the live probe tables after the leg and again after
    the session is closed and collected;
+4c. batch-planning path: the reference batch sweep's queued-burst trace
+   at SF 1 (6 bursts of 4 same-instant q3s, one segment a burst, dates
+   ascending from 1996-06-24 to 1996-06-30 in steps of 2 days, so the
+   narrowest member comes first; bursts 0.002 virtual s apart) in graft
+   mode, default morsels, one worker and one partition, in two legs:
+   ``batch-greedy`` (one arrival at a time) and ``batch-planned``
+   (``batch_planning=True``, ``batch_window=0.0``: each burst is one
+   cohort). Launch counts are reset before each leg and read after it.
+   Every result of both legs equals the reference executor (rtol 1e-9) and
+   the planned leg's equal the greedy leg's; the planned leg forms 6
+   cohorts of 24 queries with a coverage gain, each query's stats carry
+   its cohort record, and B1 launches in both legs (every probe of this
+   trace runs inside the chain, so B2-B4 do not launch). A smaller trace
+   of same-instant q5s (2 bursts of 4, one region a burst, dates 60 days
+   apart up to 1994-06-30: windows of one width, shifted, so a cohort's
+   members see different rows of one orders state) runs in the same two
+   legs, ``batch-q5-greedy`` and ``batch-q5-planned``, with the same
+   checks (2 cohorts of 8 queries), and B1 and a lens probe (B2 or B3)
+   launch in each of its legs. Each leg records
+   its wall and virtual seconds, the engine's row and batch counters, the
+   launches of B1-B4, the backend's calls and host seconds (as in phase 4;
+   ``_insert_keys``' calls are the probe tables' growth steps), the
+   fallback counters and, for the planned leg, the host seconds in
+   ``plan_cohort``. Then the serving plane (``graftdb_torch.
+   connect_serving``) on the reference serve-fold workload (48 requests
+   over 4 prompts with a 1,024-token prefix) isolated, folded and folded
+   with ``batch_fold``: every request's extents add up to its prompt and
+   the folded legs prefill fewer tokens; it runs on the host alone;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
-   versions), in the default and the opt-in configuration, and the repeat
+   versions), in the default and the opt-in configuration, the repeat
    trace with a cache whose small memory tier demotes artifacts to the
    disk tier and the chaos leg's ``FaultPlan``, in both configurations,
-   must give identical results, statuses, counters, backend stats and
-   virtual clocks;
+   and the burst trace with batch planning must give identical results,
+   statuses, counters, admission logs, cohort plans, backend stats and
+   virtual clocks; and on the card a trace of bursts of one with batch
+   planning on must be fingerprint-identical (results, counters, clock)
+   to the same trace with it off;
 6. kernel-ops path: ``repro_torch.kernels.ops.attention`` at
    recurrentgemma-9b's local attention (``[16, 4096, 256]``, window
    2,048) and starcoder2-7b's causal attention (``[36, 4096, 128]``),
@@ -234,6 +265,10 @@ FLOOR = "_n1"
 #: 65,536 keys (its three levels: event mean, host time per call, device
 #: time)
 TRACED_SF = ("fused_chain_rich", "hash_probe_lens_multi")
+
+
+#: the first query id of a twin's runs (both devices number alike)
+TWIN_QID_BASE = 1_000_000
 
 
 def log(*a):
@@ -892,16 +927,21 @@ def workload(db, n, seed):
     return qs
 
 
-def run_session(db, qs, **cfg):
+def run_session(db, qs, qid_base=None, **cfg):
     """One session over the workload; returns it, the futures and the wall
-    seconds of ``run()``."""
+    seconds of ``run()``. With ``qid_base`` the i-th query gets the id
+    ``qid_base + i`` (queries are numbered process-wide, and cohort plans
+    and admission logs name them by id), so two runs compare by id."""
+    import dataclasses
+
     import graftdb_torch
     from repro_torch.relational import queries
 
     session = graftdb_torch.connect(db, graftdb_torch.EngineConfig(**cfg))
-    futs = session.submit_all(
-        [queries.make_query(db, q.template, q.params, arrival=q.arrival) for q in qs]
-    )
+    built = [queries.make_query(db, q.template, q.params, arrival=q.arrival) for q in qs]
+    if qid_base is not None:
+        built = [dataclasses.replace(q, qid=qid_base + i) for i, q in enumerate(built)]
+    futs = session.submit_all(built)
     t0 = time.perf_counter()
     session.run()
     return session, futs, time.perf_counter() - t0
@@ -943,19 +983,25 @@ def leg_summary(session, wall):
     }
 
 
+def cohort_plans(session):
+    """The session's planned cohorts: id, admission time and plan."""
+    return [(e["cohort"], e["t"], e["plan"].to_dict()) for e in session.cohort_log()]
+
+
 def twin(db, qs, optin=False, **cfg):
     """The same workload on the card and on the CPU must give identical
     runs, in the default config or (``optin``) with the opt-in kernels:
     results, the status of each query that did not complete, counters,
-    backend stats and clocks."""
+    admission logs, cohort plans, backend stats and clocks."""
     from repro_torch.api.backends import TorchBackend
 
     runs = []
     for dev in ("cuda", "cpu"):
         where = dict(backend=TorchBackend(device=dev, **OPTIN)) if optin else dict(device=dev)
-        session, futs, _ = run_session(db, qs, **where, **cfg)
-        runs.append((session, outcomes(futs)))
-    (s_gpu, r_gpu), (s_cpu, r_cpu) = runs
+        session, futs, _ = run_session(db, qs, qid_base=TWIN_QID_BASE, **where, **cfg)
+        admissions = [session._runner.admission_log.get(f.qid) for f in futs]
+        runs.append((session, outcomes(futs), admissions, cohort_plans(session)))
+    (s_gpu, r_gpu, a_gpu, p_gpu), (s_cpu, r_cpu, a_cpu, p_cpu) = runs
     for i, (a, b) in enumerate(zip(r_gpu, r_cpu)):
         if isinstance(a, str) or isinstance(b, str):
             if a != b:
@@ -969,13 +1015,18 @@ def twin(db, qs, optin=False, **cfg):
         diff = {k: (s_gpu.counters[k], s_cpu.counters.get(k)) for k in s_gpu.counters
                 if s_gpu.counters[k] != s_cpu.counters.get(k)}
         raise AssertionError(f"twin: counters differ: {diff}")
+    if a_gpu != a_cpu:
+        raise AssertionError("twin: admission logs differ")
+    if p_gpu != p_cpu:
+        raise AssertionError("twin: cohort plans differ")
     if s_gpu.backend.stats() != s_cpu.backend.stats():
         raise AssertionError("twin: backend counters differ")
     if s_gpu.now != s_cpu.now:
         raise AssertionError(f"twin: clocks differ: {s_gpu.now!r} != {s_cpu.now!r}")
     out = {"now_s": s_gpu.now, "chain_launches": int(s_gpu.counters["kernel_chain_launches"]),
            "not_done": sum(isinstance(r, str) for r in r_gpu)}
-    out.update({k: s_gpu.counters[k] for k in REUSE_COUNTERS})
+    out.update({k: s_gpu.counters[k] for k in REUSE_COUNTERS + BATCH_COUNTERS})
+    out["cohorts"] = len(p_gpu)
     s_gpu.close()
     s_cpu.close()
     return out
@@ -1311,6 +1362,272 @@ def reuse_phase(db, report):
 
 
 # ---------------------------------------------------------------------------
+# the batch-planning path
+# ---------------------------------------------------------------------------
+
+#: the queued-burst trace of the reference's batch sweep
+#: (``benchmarks/batch_sweep.py`` ``make_burst_trace``): bursts of
+#: same-instant q3s on one segment each (``b % 5``), dates ascending in
+#: steps of 2 days up to 1996-06-30, so the narrowest member comes first,
+#: bursts ``BATCH_GAP_S`` virtual s apart; 6 bursts of 4 at SF 1
+BATCH_BURSTS = 6
+BATCH_SIZE = 4
+BATCH_GAP_S = 0.002
+BATCH_GROUPS = 5
+#: per template of a burst trace: the parameter that takes the burst's
+#: group, the last date of a burst and the step between its members' dates
+#: (days). q5's windows have one width, so its members are shifted windows
+#: that see different rows of one shared orders state
+BURST_SHAPES = {"q3": ("segment", "1996-06-30", 2), "q5": ("region", "1994-06-30", 60)}
+#: the q5 burst trace: 2 bursts of 4, whose cohorts' probes reach the lens
+#: probes
+BATCH_Q5_BURSTS = 2
+#: the two legs of the sweep (``batch_sweep._run_leg``): graft mode, the
+#: default morsels, one worker, one partition; the planned leg's window is
+#: 0, so each burst (one arrival instant) is one cohort
+BATCH_LEG = dict(mode="graft", workers=1, partitions=1)
+BATCH_LEGS = (("greedy", dict(BATCH_LEG, batch_planning=False)),
+              ("planned", dict(BATCH_LEG, batch_planning=True, batch_window=0.0)))
+#: per burst trace: the kernels each leg must launch, and the kernels of
+#: which each leg must launch one. At SF 1 every probe of the q3 trace
+#: runs inside the chain, in both legs, so B2-B4 launch 0 times there
+#: (measured on the H100); the q5 trace's multi-member probes leave the
+#: chain and take a lens probe
+BATCH_TRACES = (
+    ("q3", BATCH_BURSTS, ("fused_chain",), ()),
+    ("q5", BATCH_Q5_BURSTS, ("fused_chain",),
+     ("hash_probe_lens64", "hash_probe_lens_multi64")),
+)
+#: the engine's batch-planning counters
+BATCH_COUNTERS = ("batch_cohorts", "batch_planned_queries", "batch_coverage_gain_rows")
+#: the serving phase: ``benchmarks/serve_fold.py``'s workload (48 requests
+#: over 4 prompts of a 1,024-token prefix, a 64-token suffix each, 32
+#: decode steps, Poisson arrivals at 0.05 s, seed 0), in three legs
+SERVE_LEGS = (("isolated", dict(fold=False)), ("fold", dict(fold=True)),
+              ("batch-fold", dict(fold=True, batch_fold=True)))
+
+
+def burst_trace(db, n_bursts, size, gap_s=BATCH_GAP_S, template="q3"):
+    """A burst trace's queries, dates ascending within each burst."""
+    from repro_torch.relational import queries
+    from repro_torch.relational.table import days
+
+    group, end, step = BURST_SHAPES[template]
+    last = days(end)
+    return [
+        queries.make_query(
+            db, template,
+            {group: float(b % BATCH_GROUPS), "date": float(last - step * (size - 1 - i))},
+            arrival=(b + 1) * gap_s,
+        )
+        for b in range(n_bursts)
+        for i in range(size)
+    ]
+
+
+def fingerprint(session, results):
+    """Byte-level identity of one run (``batch_sweep._fingerprint``): every
+    result column in canonical row order, every engine counter, the clock."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for res in results:
+        keys = sorted(res)
+        order = np.lexsort([np.asarray(res[k]) for k in keys])
+        for k in keys:
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(np.asarray(res[k])[order]).tobytes())
+    for k in sorted(session.counters):
+        h.update(f"{k}={session.counters[k]!r};".encode())
+    h.update(f"now={session.now!r}".encode())
+    return h.hexdigest()
+
+
+def batch_leg(db, qs, expected, label, cfg, timer, planner, required, one_of):
+    """One leg of the batch phase: launch counts reset before it and read
+    after it, every result equal to the reference executor (rtol 1e-9),
+    every kernel of ``required`` and one of ``one_of`` launched. Returns the
+    record and the results."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    timer.engine_times()
+    planner[0], planner[1] = 0, 0.0
+    _build.reset_launch_counts()
+    session, futs, wall = run_session(db, qs, **cfg)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    engine = timer.engine_times()
+    results = outcomes(futs)
+    worst = check_results(label, results, expected)
+    if session._engine.cohort_ctx is not None:
+        raise AssertionError(f"{label}: the cohort context outlived its cohort")
+    c = session.counters
+    rec = {
+        "wall_s": wall,
+        "now_s": session.now,
+        "max_rel_err": worst,
+        "rows_counters": {k: c.get(k, 0.0) for k in sorted(
+            {k for k in c if k.endswith("_rows")} | {"represented_rows"})},
+        "batch_counters": {k: c[k] for k in BATCH_COUNTERS},
+        "fallbacks": {k: c[k] for k in sorted(c) if k.startswith("fallback_")},
+        "launches": {k: launches.get(k, 0) for k in LAUNCH_PATH},
+        "engine": engine,
+        "growth_steps": engine["_insert_keys"]["calls"],
+        "plan_cohort": {"calls": planner[0], "seconds": planner[1]},
+        "cohorts": [{"t": e["t"], "order": list(e["plan"].order),
+                     "gain_rows": e["plan"].gain_rows} for e in session.cohort_log()],
+        "cohort_records": sum("cohort" in (f.stats()["admission"] or {}) for f in futs),
+        "backend": session.backend.stats(),
+    }
+    log(f"batch leg {label}: results == refexec (rtol 1e-9, largest {worst:.3g}); wall "
+        f"{wall:.3f} s, clock {session.now!r} s; {rec['batch_counters']}; rows "
+        f"{rec['rows_counters']}; launches {rec['launches']}; fallbacks {rec['fallbacks']}; "
+        f"_insert_keys {engine['_insert_keys']['seconds']:.4f} s over {rec['growth_steps']} "
+        f"growth steps, _batch_insert {engine['_batch_insert']['seconds']:.4f} s; plan_cohort "
+        f"{planner[0]} calls, {planner[1]:.4f} s")
+    session.close()
+    missing = [k for k in required if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    if one_of and not any(launches.get(k, 0) for k in one_of):
+        raise AssertionError(f"{label}: none of {list(one_of)} launched")
+    return rec, results
+
+
+def batch_trace_legs(db, template, n_bursts, required, one_of, timer, planner):
+    """One burst trace at SF 1 on the card in the two legs; the checks of
+    ``batch_phase``. Returns the trace's record."""
+    from repro_torch.relational import refexec
+
+    qs = burst_trace(db, n_bursts, BATCH_SIZE, template=template)
+    t0 = time.perf_counter()
+    expected = [refexec.execute(db, q.plan) for q in qs]
+    out = {"reference_executor_s": time.perf_counter() - t0, "template": template,
+           "bursts": n_bursts, "burst_size": BATCH_SIZE, "gap_s": BATCH_GAP_S, "legs": {}}
+    log(f"burst trace: {n_bursts} bursts of {BATCH_SIZE} {template}s; reference executor "
+        f"{out['reference_executor_s']:.1f} s")
+    prefix = "batch-" if template == "q3" else f"batch-{template}-"
+    results = {}
+    for kind, cfg in BATCH_LEGS:
+        label = prefix + kind
+        out["legs"][label], results[kind] = batch_leg(
+            db, qs, expected, label, cfg, timer, planner, required, one_of)
+    check_results(f"{prefix}planned vs {prefix}greedy", results["planned"], results["greedy"])
+    planned = out["legs"][prefix + "planned"]
+    want = {"batch_cohorts": n_bursts, "batch_planned_queries": len(qs)}
+    got = {k: planned["batch_counters"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{prefix}planned: {got}, expected {want}")
+    if planned["batch_counters"]["batch_coverage_gain_rows"] <= 0:
+        raise AssertionError(f"{prefix}planned: no coverage gained")
+    if planned["cohort_records"] != len(qs):
+        raise AssertionError(f"{prefix}planned: {planned['cohort_records']} of {len(qs)} "
+                             f"queries carry a cohort record")
+    greedy = out["legs"][prefix + "greedy"]
+    out["planned_over_greedy"] = {
+        "virtual": planned["now_s"] / greedy["now_s"],
+        "wall": planned["wall_s"] / greedy["wall_s"],
+    }
+    log(f"batch {template}: planned == greedy == refexec; planned / greedy virtual "
+        f"{out['planned_over_greedy']['virtual']!r}, wall {out['planned_over_greedy']['wall']!r}")
+    return out
+
+
+def batch_phase(db, report):
+    """Phase 4c: each burst trace at SF 1 on the card in two legs,
+    greedy (one arrival at a time) and planned (each burst planned as one
+    cohort). Checks: every result of both legs equals the reference
+    executor (rtol 1e-9) and the planned leg's the greedy leg's; the
+    planned leg forms one cohort a burst, plans every query, gains
+    coverage, and every query's stats carry its cohort record; each leg
+    launches its trace's kernels (``BATCH_TRACES``). ``plan_cohort``'s host
+    seconds are timed around it, as the backend's calls are."""
+    from repro_torch.core import batchplan
+
+    timer = Recorder(replay=False)
+    planner = [0, 0.0]
+    orig = batchplan.plan_cohort
+    batchplan.plan_cohort = Recorder._timed(orig, planner)
+    try:
+        report["batch"] = {
+            template: batch_trace_legs(db, template, n_bursts, required, one_of, timer, planner)
+            for template, n_bursts, required, one_of in BATCH_TRACES}
+    finally:
+        batchplan.plan_cohort = orig
+        timer.restore()
+
+
+def batch_twins(tdb, report):
+    """The burst trace at the twins' scale: with batch planning, the card
+    and the CPU give identical runs (``twin``); a trace of bursts of one,
+    with batch planning on, is fingerprint-identical on the card to the
+    same trace with it off (every cohort has one member)."""
+    rec = twin(tdb, burst_trace(tdb, BATCH_BURSTS, BATCH_SIZE),
+               **dict(BATCH_LEGS[1][1]))
+    if rec["cohorts"] != BATCH_BURSTS or rec["batch_planned_queries"] != BATCH_BURSTS * BATCH_SIZE:
+        raise AssertionError(f"twin batch_planned: {rec['cohorts']} cohorts, "
+                             f"{rec['batch_planned_queries']} planned queries")
+    report["twin"]["batch_planned"] = rec
+    singles = burst_trace(tdb, BATCH_BURSTS, 1)
+    prints = {}
+    for on in (False, True):
+        session, futs, _ = run_session(tdb, singles, **dict(BATCH_LEG, batch_planning=on))
+        prints[on] = fingerprint(session, [f.result() for f in futs])
+        session.close()
+    if prints[True] != prints[False]:
+        raise AssertionError("singleton trace: batch planning on differs from off")
+    report["twin"]["batch_singleton_fingerprint"] = prints[True]
+
+
+def serve_workload(request, n=48, n_prompts=4, prefix=1024, suffix=64, seed=0):
+    """``benchmarks/serve_fold.py``'s ``_workload``."""
+    rng = np.random.default_rng(seed)
+    prompts = [tuple(rng.integers(0, 32000, prefix).tolist()) for _ in range(n_prompts)]
+    reqs, t = [], 0.0
+    for i in range(n):
+        t += float(rng.exponential(0.05))
+        p = prompts[int(rng.integers(0, n_prompts))]
+        reqs.append(request(i, p + tuple(rng.integers(0, 32000, suffix).tolist()), 32,
+                            arrival=t))
+    return reqs
+
+
+def serving_phase(report):
+    """The KV-prefix serving plane (``graftdb_torch.connect_serving``) on the
+    serve-fold workload in three legs. It runs a token-cost simulator on the
+    host and touches no device. Checks: every request's represented,
+    residual and ordinary tokens add up to its prompt, and both folded legs
+    prefill fewer tokens than the isolated one."""
+    import graftdb_torch
+    from repro_torch.serve.folding import Request
+
+    out = {"device": "none (host only: the serving plane's token-cost simulator)", "legs": {}}
+    for label, cfg in SERVE_LEGS:
+        session = graftdb_torch.connect_serving(**cfg)
+        futs = session.submit_all(serve_workload(Request))
+        t0 = time.perf_counter()
+        summary = session.run()
+        wall = time.perf_counter() - t0
+        for f in futs:
+            r = f.result()
+            if r["represented_tokens"] + r["residual_tokens"] + r["ordinary_tokens"] \
+                    != len(f.request.prompt):
+                raise AssertionError(f"serving {label}: r{f.rid}'s extents do not add up")
+        out["legs"][label] = {"prefill_tokens": summary["prefill_tokens"],
+                              "mean_latency_s": summary["mean_latency"],
+                              "elapsed_s": summary["elapsed"], "wall_s": wall}
+        log(f"serving {label}: prefill {summary['prefill_tokens']}, mean virtual latency "
+            f"{summary['mean_latency']!r} s, wall {wall:.4f} s")
+    computed = {k: v["prefill_tokens"]["computed"] for k, v in out["legs"].items()}
+    if not computed["fold"] < computed["isolated"] or \
+            not computed["batch-fold"] < computed["isolated"]:
+        raise AssertionError(f"serving: folded legs do not prefill fewer tokens: {computed}")
+    report["serving"] = out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1472,6 +1789,10 @@ def smoke(report):
 
     # 4b. the reuse-and-fault path at the full scale
     reuse_phase(db, report)
+
+    # 4c. the batch-planning path at the full scale, and the serving plane
+    batch_phase(db, report)
+    serving_phase(report)
     del db
 
     # 5. twins: card and CPU give identical runs
@@ -1493,7 +1814,9 @@ def smoke(report):
         for k in ("cache_hits", "cache_disk_high_water_bytes", "faults_injected"):
             if rec[k] <= 0:
                 raise AssertionError(f"twin {label}: {k} is {rec[k]}")
-    log(f"twins SF {TWIN_SCALE}: cuda == cpu (results, counters, backend stats, clock) "
+    batch_twins(tdb, report)
+    log(f"twins SF {TWIN_SCALE}: cuda == cpu (results, counters, admission logs, cohort "
+        f"plans, backend stats, clock); singleton bursts: planning on == off "
         f"in {time.perf_counter() - t0:.1f} s")
     return rows
 

@@ -94,6 +94,17 @@ class EngineConfig:
       ``workers=1, partitions=1`` is byte-identical to the seed engine.
     * ``max_sleep_s`` — WallClock sleep cap: longer idle gaps are skipped
       virtually instead of blocking (None = sleep the full gap).
+    * ``batch_planning`` — graft-aware batch planning (DESIGN.md §15):
+      arrivals due at one decision step are windowed into cohorts and
+      admitted in the joint planner's provider-first order (maximizing
+      total represented coverage across the cohort) instead of greedy
+      one-at-a-time FIFO. False (default) keeps the greedy path
+      byte-identical to prior releases; with batch planning on, due
+      submissions gather into the arrival queue and fold at the next
+      decision step.
+    * ``batch_window`` — arrival window (seconds) of one cohort: arrivals
+      within this span of the cohort's earliest member plan jointly. 0.0
+      batches only same-instant ties.
     * ``faults`` — deterministic chaos injection (DESIGN.md §16): a seeded
       ``core.faults.FaultPlan`` arms the engine's fault hooks (morsel /
       rehydrate / stall sites; the exchange site waits for the mesh plane),
@@ -105,9 +116,9 @@ class EngineConfig:
       differential oracle the fused path is verified against (results,
       probe pair streams, and EXPLAIN GRAFT accounting are bit-identical).
 
-    The reference's ``mesh`` and ``batch_planning=True`` belong to planes
-    the port does not have yet: setting either raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it.
+    The reference's ``mesh`` belongs to a plane the port does not have yet:
+    setting it raises ``NotImplementedError`` naming the ROADMAP item that
+    ports it.
     """
 
     mode: str = "graft"
@@ -132,6 +143,7 @@ class EngineConfig:
     member_major: bool = True
     mesh: Union[None, str, int, object] = None
     batch_planning: bool = False
+    batch_window: float = 0.0
     faults: Optional[object] = None
 
     def __post_init__(self):
@@ -240,8 +252,17 @@ class EngineConfig:
             raise ValueError(
                 f"member_major must be a bool, got {self.member_major!r}"
             )
-        if self.batch_planning is not False:
-            raise _not_ported("batch_planning", "A2")
+        if not isinstance(self.batch_planning, bool):
+            raise ValueError(
+                f"batch_planning must be a bool, got {self.batch_planning!r}"
+            )
+        if not isinstance(self.batch_window, (int, float)) or isinstance(
+            self.batch_window, bool
+        ) or self.batch_window < 0:
+            raise ValueError(
+                f"batch_window must be a non-negative number (seconds), "
+                f"got {self.batch_window!r}"
+            )
         if self.faults is not None:
             from ..core.faults import FaultPlan
 
@@ -311,3 +332,64 @@ class EngineConfig:
     def with_(self, **kw) -> "EngineConfig":
         """Functional update (frozen dataclass)."""
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Configuration of one serving (KV-prefix folding) session.
+
+    * ``fold`` — enable dynamic folding (False = isolated baseline: every
+      request prefills its whole prompt).
+    * ``batch_fold`` — multi-prefix batching (DESIGN.md §15): requests due
+      at the same event-loop step admit longest-prompt-first, so shorter
+      same-instant prompts fold onto the longest request's fresh prefix
+      state instead of each creating its own.
+    * ``min_share`` — minimum shared-prefix length (tokens) worth attaching.
+    * ``prefill_tok_s`` / ``decode_step_s`` — SimExecutor cost model; ignored
+      when an explicit ``executor`` is passed to ``connect_serving``.
+    * ``retain_prefixes`` — keep zero-ref prefix states (their covered KV
+      cache serves later matching requests) instead of dropping them (§10).
+    * ``memory_budget_tokens`` — token budget of retained prefixes; the
+      evictor reclaims retired states oldest-epoch-first past it (None =
+      retain without bound; requires ``retain_prefixes``).
+    * ``reuse_cache_tokens`` — token budget of the serving-plane artifact
+      cache (§12): evicted KV prefixes spill into the same tiered
+      ``ArtifactStore`` the relational reuse plane uses and rehydrate when
+      a later request's prompt matches (None = no prefix cache; requires
+      ``retain_prefixes``).
+    """
+
+    fold: bool = True
+    batch_fold: bool = False
+    min_share: int = 16
+    prefill_tok_s: float = 8000.0
+    decode_step_s: float = 0.02
+    retain_prefixes: bool = False
+    memory_budget_tokens: Optional[int] = None
+    reuse_cache_tokens: Optional[int] = None
+
+    def __post_init__(self):
+        if not isinstance(self.batch_fold, bool):
+            raise ValueError(f"batch_fold must be a bool, got {self.batch_fold!r}")
+        if self.min_share < 0:
+            raise ValueError(f"min_share must be >= 0, got {self.min_share!r}")
+        if self.prefill_tok_s <= 0 or self.decode_step_s <= 0:
+            raise ValueError("executor cost-model rates must be positive")
+        if self.memory_budget_tokens is not None:
+            if not isinstance(self.memory_budget_tokens, int) or self.memory_budget_tokens < 0:
+                raise ValueError(
+                    f"memory_budget_tokens must be a non-negative int or None, "
+                    f"got {self.memory_budget_tokens!r}"
+                )
+            if not self.retain_prefixes:
+                raise ValueError(
+                    "memory_budget_tokens requires retain_prefixes=True"
+                )
+        if self.reuse_cache_tokens is not None:
+            if not isinstance(self.reuse_cache_tokens, int) or self.reuse_cache_tokens < 0:
+                raise ValueError(
+                    f"reuse_cache_tokens must be a non-negative int or None, "
+                    f"got {self.reuse_cache_tokens!r}"
+                )
+            if not self.retain_prefixes:
+                raise ValueError("reuse_cache_tokens requires retain_prefixes=True")

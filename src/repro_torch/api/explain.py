@@ -453,3 +453,50 @@ def _build_joins(join: HashJoin) -> List[HashJoin]:
     the order the producer path resolves them (bottom-up along its spine)."""
     _, inner = build_spine(join.build)
     return inner
+
+
+# ---------------------------------------------------------------------------
+# Cohort analysis (§15): EXPLAIN GRAFT for a planned batch
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CohortExplain:
+    """EXPLAIN GRAFT COHORT: the batch planner's verdict for a set of queued
+    queries, paired with each member's pre-flight single-query analysis.
+
+    ``plan`` is the pure ``core.batchplan.CohortPlan`` (admission order,
+    per-member snapshot vs planned coverage); ``members`` holds the ordinary
+    EXPLAIN GRAFT reports taken against the *current* engine snapshot, in
+    planned admission order. Read-only, like ``analyze_query``."""
+
+    plan: "object"  # core.batchplan.CohortPlan
+    members: Tuple[GraftExplain, ...] = ()
+
+    def to_dict(self) -> dict:
+        return {
+            "plan": self.plan.to_dict(),
+            "members": [m.to_dict() for m in self.members],
+        }
+
+    def render(self) -> str:
+        lines = [self.plan.render()]
+        for m in self.members:
+            lines.append("")
+            lines.append(m.render())
+        return "\n".join(lines)
+
+
+def analyze_cohort(engine, queries) -> CohortExplain:
+    """EXPLAIN GRAFT COHORT for ``queries`` against the current engine state.
+
+    Runs the §15 batch planner as a pure function of the live snapshot, then
+    attaches each member's ordinary ``analyze_query`` report in the planned
+    admission order. Never attaches, grants, or creates state."""
+    from ..core.batchplan import plan_cohort
+
+    queries = list(queries)
+    plan = plan_cohort(engine, queries)
+    by_qid = {q.qid: q for q in queries}
+    members = tuple(analyze_query(engine, by_qid[qid]) for qid in plan.order)
+    return CohortExplain(plan=plan, members=members)

@@ -225,3 +225,53 @@ class QueryFuture:
     def __repr__(self) -> str:
         state = "done" if self.done else "pending"
         return f"<QueryFuture q{self.qid} [{self.query.template}] {state}>"
+
+
+class RequestFuture:
+    """Completion handle for one serving request (KV-prefix folding).
+
+    The serving analogue of QueryFuture on the shared Session surface:
+    ``result()`` drives the serving session's event loop if needed and
+    returns the request's timing/extent record.
+    """
+
+    def __init__(self, session, request):
+        self._session = session
+        self.request = request
+        self.rid = request.rid
+
+    @property
+    def done(self) -> bool:
+        return self.request.t_complete is not None
+
+    def result(self, wait: bool = True) -> Dict[str, float]:
+        if not self.done and wait:
+            self._session.run()
+        if not self.done:
+            raise RuntimeError(f"request r{self.rid} has not completed")
+        r = self.request
+        return {
+            "rid": r.rid,
+            "t_first_token": r.t_first_token,
+            "t_complete": r.t_complete,
+            "latency_s": r.t_complete - r.arrival,
+            "represented_tokens": r.represented_tokens,
+            "residual_tokens": r.residual_tokens,
+            "ordinary_tokens": r.ordinary_tokens,
+        }
+
+    def latency(self) -> float:
+        if not self.done:
+            raise RuntimeError(f"request r{self.rid} has not completed")
+        return self.request.t_complete - self.request.arrival
+
+    def explain(self) -> Dict[str, int]:
+        """Extent partition of this request's prompt, captured at admission."""
+        exp = self._session._explains.get(self.rid)
+        if exp is None:
+            raise RuntimeError(f"request r{self.rid} has not been admitted yet")
+        return exp
+
+    def __repr__(self) -> str:
+        state = "done" if self.done else "pending"
+        return f"<RequestFuture r{self.rid} {state}>"

@@ -52,11 +52,16 @@ class Session:
             faults=self.config.faults,
         )
         admission = self.config.make_admission()
+        batch_kw = dict(
+            batch_planning=self.config.batch_planning,
+            batch_window=self.config.batch_window,
+        )
         if self.config.workers == 1:
             self._runner = Runner(
                 self._engine,
                 clock=self.config.make_clock(),
                 admission=admission,
+                **batch_kw,
             )
         else:
             self._runner = Runner(
@@ -64,6 +69,7 @@ class Session:
                 workers=self.config.workers,
                 clock_factory=self.config.clock_factory(),
                 admission=admission,
+                **batch_kw,
             )
         if self.config.capture_explain:
             self._runner.submit_hook = self._capture_explain
@@ -98,7 +104,11 @@ class Session:
             self._runner.deadlines[query.qid] = float(deadline)
         fut = QueryFuture(self, query)
         self._futures[query.qid] = fut
-        if query.arrival <= self.clock.now:
+        if self.config.batch_planning:
+            # batch planning (§15): due submissions gather into the arrival
+            # queue so run()'s next decision step can plan them as a cohort
+            self._runner.add_arrival(query)
+        elif query.arrival <= self.clock.now:
             # due now: still subject to the admission controller — a
             # deferred query is admitted by run() when load drops
             self._runner.submit_arrival(query)
@@ -168,6 +178,20 @@ class Session:
         self._check_open()
         return analyze_query(self._engine, query)
 
+    def explain_cohort(self, queries: Iterable[Query]) -> "CohortExplain":
+        """Pre-flight EXPLAIN GRAFT COHORT (§15): how this set of queries
+        would be jointly planned against the engine's *current* shared
+        state. Read-only; does not admit."""
+        self._check_open()
+        from .explain import analyze_cohort
+
+        return analyze_cohort(self._engine, list(queries))
+
+    def cohort_log(self) -> List[Dict[str, object]]:
+        """Cohorts admitted through the batch planner this session, in
+        admission order: ``{"cohort": id, "t": time, "plan": CohortPlan}``."""
+        return list(self._runner.cohort_log)
+
     # -- introspection -------------------------------------------------------
     @property
     def clock(self):
@@ -205,7 +229,9 @@ class Session:
         # overload path (§10): admission queue + lifecycle gauges
         out["admission"] = self.config.admission
         out["queued_pending"] = len(self._runner._admit_queue)
+        # batch planning (§15)
         out["batch_planning"] = self.config.batch_planning
+        out["batch_window"] = self.config.batch_window
         out["memory_budget"] = self.config.memory_budget
         out["reuse_cache_budget"] = self.config.reuse_cache_budget
         backend_stats = getattr(self.backend, "stats", None)

@@ -274,7 +274,12 @@ class AdmissionController:
         self,
         engine: GraftEngine,
         query: Query,
+        active_count: Optional[int] = None,
     ) -> Tuple[str, str]:
+        """``active_count`` overrides ``len(engine.active_handles)`` — the
+        batched admission path (§15) passes the simulated in-flight count so
+        selecting a whole cohort at one decision step keeps the greedy FIFO
+        semantics."""
         live, cached = self.potentials(engine, query)
         potential = max(live, cached)
         if potential <= 0.0:
@@ -283,7 +288,8 @@ class AdmissionController:
             reason = "cache"
         else:
             reason = "graft"  # live state dominates: no rehydration cost
-        if len(engine.active_handles) < self.max_inflight:
+        n_active = len(engine.active_handles) if active_count is None else active_count
+        if n_active < self.max_inflight:
             self._pot_memo.pop(query.qid, None)
             return ("admit", reason)
         if potential >= self.share_threshold:
@@ -314,6 +320,8 @@ class Runner:
         workers: int = 1,
         clock_factory: Optional[Callable[[], object]] = None,
         admission: Optional[AdmissionController] = None,
+        batch_planning: bool = False,
+        batch_window: float = 0.0,
     ):
         self.engine = engine
         self.workers = max(1, int(workers))
@@ -342,6 +350,13 @@ class Runner:
         # decide()/graft_potential when neither has happened
         self._drain_ver: Optional[Tuple[float, float, int]] = None
         self.admission_log: Dict[int, Dict[str, object]] = {}
+        # batch planning (§15): gather every arrival due at one decision
+        # step, window them into cohorts, and admit each cohort in the
+        # joint planner's provider-first order. False leaves the greedy
+        # one-at-a-time path byte-identical to prior PRs.
+        self.batch_planning = bool(batch_planning)
+        self.batch_window = float(batch_window)
+        self.cohort_log: List[Dict[str, object]] = []
         # Called with the query right before each admission (the Session
         # facade captures EXPLAIN GRAFT snapshots through this).
         self.submit_hook: Optional[Callable[[Query], None]] = None
@@ -581,11 +596,139 @@ class Runner:
         }
 
     def _admit_due(self, now: float, on_complete) -> None:
+        if self.batch_planning:
+            self._admit_due_batched(now, on_complete)
+            return
         self._drain_admit_queue(now, on_complete)
         while self._heap and self._heap[0][0] <= now:
             _, _, q = heapq.heappop(self._heap)
             if self._try_admit(q, now):
                 self._after_events(on_complete)
+
+    # -- batched admission (§15) ---------------------------------------------
+    def _admit_due_batched(self, now: float, on_complete) -> None:
+        """Cohort admission: gather every candidate due at this decision
+        step — the deferred FIFO queue first, then due heap arrivals — run
+        the admission controller over them in FIFO order against a
+        simulated in-flight count, window the admissible ones into arrival
+        cohorts, and admit each cohort in the joint planner's order. A
+        size-1 cohort takes exactly the greedy admission steps."""
+        due: List[Tuple[float, int, Query]] = []
+        while self._heap and self._heap[0][0] <= now:
+            due.append(heapq.heappop(self._heap))
+        if not due:
+            if not self._admit_queue:
+                return
+            # no new arrivals: same memo as the greedy drain — verdicts
+            # cannot change until a submission/completion/new deferral
+            c = self.engine.counters
+            if (c["submitted"], c["completed"], len(self._admit_queue)) == self._drain_ver:
+                return
+        # -- selection: admission semantics, FIFO order, simulated load
+        selected: List[Tuple[Query, Optional[float], Optional[str]]] = []
+        queued, self._admit_queue = self._admit_queue, []
+        for arr, qid, q, t0 in queued:
+            reason = self._select(q, len(selected))
+            if reason is not None:
+                selected.append((q, t0, reason))
+            else:
+                self._admit_queue.append((arr, qid, q, t0))
+                self._pin_candidates(q)
+        for arr, qid, q in due:
+            reason = self._select(q, len(selected))
+            if reason is not None:
+                selected.append((q, None, reason))
+            else:
+                self.engine.counters["queued_admissions"] += 1
+                self._admit_queue.append((arr, qid, q, now))
+                self._pin_candidates(q)
+        c = self.engine.counters
+        self._drain_ver = (c["submitted"], c["completed"], len(self._admit_queue))
+        if not selected:
+            return
+        # -- window the admissible arrivals into cohorts
+        selected.sort(key=lambda e: (e[0].arrival, e[0].qid))
+        cohorts: List[List[Tuple[Query, Optional[float], Optional[str]]]] = []
+        for entry in selected:
+            if cohorts and entry[0].arrival <= cohorts[-1][0][0].arrival + self.batch_window:
+                cohorts[-1].append(entry)
+            else:
+                cohorts.append([entry])
+        # -- admit each cohort in planned order
+        from .batchplan import plan_cohort
+
+        for cohort in cohorts:
+            if len(cohort) == 1:
+                q, t0, reason = cohort[0]
+                self._admit_one(q, now, t0, reason, on_complete)
+                continue
+            plan = plan_cohort(self.engine, [e[0] for e in cohort])
+            cid = len(self.cohort_log)
+            self.cohort_log.append({"cohort": cid, "t": now, "plan": plan})
+            self.engine.counters["batch_cohorts"] += 1
+            self.engine.counters["batch_planned_queries"] += plan.size
+            self.engine.counters["batch_coverage_gain_rows"] += plan.gain_rows
+            by_qid = {e[0].qid: e for e in cohort}
+            # §15 deferred representation: expose extents earlier cohort
+            # members register to the later ones (resolve_boundary reads
+            # cohort_ctx); cleared before control leaves the cohort so the
+            # greedy path never sees it
+            self.engine.cohort_ctx = {}
+            try:
+                for slot, qid in enumerate(plan.order):
+                    q, t0, reason = by_qid[qid]
+                    self._admit_one(
+                        q,
+                        now,
+                        t0,
+                        reason,
+                        on_complete,
+                        cohort_meta={"cohort": cid, "size": plan.size, "slot": slot},
+                    )
+            finally:
+                self.engine.cohort_ctx = None
+
+    def _select(self, q: Query, n_selected: int) -> Optional[str]:
+        """Selection half of the batched path: the admission reason when the
+        controller would admit ``q`` with ``n_selected`` cohort members
+        already counted in-flight, else None (defer)."""
+        if self.admission is None:
+            return "always"
+        verdict, reason = self.admission.decide(
+            self.engine, q, active_count=len(self.engine.active_handles) + n_selected
+        )
+        return reason if verdict == "admit" else None
+
+    def _admit_one(
+        self,
+        q: Query,
+        now: float,
+        t_queued: Optional[float],
+        reason: Optional[str],
+        on_complete,
+        cohort_meta: Optional[Dict[str, int]] = None,
+    ) -> None:
+        """Admission half of the batched path: mirrors the admit branch of
+        ``_try_admit`` (log record, unpin, queue-delay accounting) plus the
+        cohort annotation, then submits and processes events."""
+        if self.admission is not None or cohort_meta is not None:
+            delay = (now - t_queued) if t_queued is not None else 0.0
+            if t_queued is not None:
+                self.engine.counters["queue_delay_s_total"] += delay
+                self._unpin_candidates(q.qid)
+            record: Dict[str, object] = {
+                "decision": reason,
+                "queued": t_queued is not None,
+                "queue_delay_s": delay,
+                "t_admitted": now,
+            }
+            if cohort_meta is not None:
+                # recorded regardless of admission control: the cohort
+                # membership of a planned admission is part of its stats
+                record["cohort"] = cohort_meta
+            self.admission_log[q.qid] = record
+        self.submit_now(q)
+        self._after_events(on_complete)
 
     def run(
         self,

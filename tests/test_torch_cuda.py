@@ -18,10 +18,13 @@ on a machine that has only PyTorch; there, run it without the repository's
 Every case needs a card and skips where none is visible.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from _torch_traces import burst_trace
 from repro_torch.kernels import _build, flash_attention, fused_chain, hash_probe, linrec
 from repro_torch.kernels import ref, seg_aggregate
 from repro_torch.kernels.fused_chain import total_order_u32
@@ -778,3 +781,49 @@ def test_cuda_rehydrated_table_by_insert_kernel_matches_host(cuda):
         assert launches.get("hash_probe_lens", 0) == 3
         assert launches.get("hash_probe_lens_multi64", 0) == 3
     session.close()
+
+
+@pytest.mark.parametrize("template", ["q3", "q5"])
+@pytest.mark.parametrize("workers", [1, 4])
+def test_cuda_batch_planning_twin(cuda, workers, template):
+    """Bursts admitted as planned cohorts: the card and the CPU give
+    identical results, counters (the ``batch_*`` ones among them), admission
+    logs, cohort plans, backend stats and clocks. q5's cohort members see
+    different rows of one orders state, so their probes reach the lens
+    probes (B2 or B3) on the card."""
+    import graftdb_torch
+
+    db = _small_db()
+    runs = []
+    for dev in ("cuda", "cpu"):
+        session = graftdb_torch.connect(db, graftdb_torch.EngineConfig(
+            mode="graft", morsel_size=2048, device=dev, batch_planning=True,
+            workers=workers, partitions=workers,
+        ))
+        _build.reset_launch_counts()
+        # pinned query ids: the plans name their members by id
+        futs = session.submit_all([
+            dataclasses.replace(q, qid=30_000 + i)
+            for i, q in enumerate(burst_trace(db, 4, 4, template=template))
+        ])
+        session.run()
+        plans = [(e["cohort"], e["t"], e["plan"].to_dict()) for e in session.cohort_log()]
+        log = [session._runner.admission_log[f.qid] for f in futs]
+        runs.append((session, futs, plans, log, _build.launch_counts()))
+    (s_gpu, f_gpu, p_gpu, l_gpu, launches), (s_cpu, f_cpu, p_cpu, l_cpu, _) = runs
+    for a, b in zip(f_gpu, f_cpu):
+        for k, v in a.result().items():
+            np.testing.assert_array_equal(v, b.result()[k])
+    assert dict(s_gpu.counters) == dict(s_cpu.counters)
+    assert s_gpu.counters["batch_cohorts"] == 4
+    assert s_gpu.counters["batch_planned_queries"] == 16
+    assert s_gpu.counters["batch_coverage_gain_rows"] > 0
+    assert p_gpu == p_cpu
+    assert l_gpu == l_cpu
+    assert s_gpu.backend.stats() == s_cpu.backend.stats()
+    assert s_gpu.now == s_cpu.now
+    assert launches.get("fused_chain", 0) > 0
+    if template == "q5":
+        assert launches.get("hash_probe_lens64", 0) + launches.get("hash_probe_lens_multi64", 0) > 0
+    for s in (s_gpu, s_cpu):
+        s.close()

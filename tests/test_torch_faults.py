@@ -10,10 +10,9 @@ under one ``FaultPlan`` through ``graftdb`` (``backend="pallas"``) and
 ``graftdb_torch`` and compare statuses, results (bit for bit), counters
 (fault counters among them), backend counters, per-query stats and clocks.
 
-The producer-handoff test runs with batch planning, which the port does not
-have yet (ROADMAP A2.3). The mesh plane's ``exchange`` site is drawn by no
-port session until the port has the mesh plane (ROADMAP A3): every shared
-morsel advance draws ``morsel``.
+The mesh plane's ``exchange`` site is drawn by no port session until the
+port has the mesh plane (ROADMAP A3): every shared morsel advance draws
+``morsel``.
 """
 
 import dataclasses
@@ -41,6 +40,11 @@ ALL_MODES = ["isolated", "scan_sharing", "qpipe_osp", "residual", "graft"]
 #: chaos workload seeds (base 31_000); each seed runs a mode x fault-mix
 #: sub-matrix, so the sweep covers every mode and every fault site
 CHAOS_SEEDS = range(6)
+
+#: same-plan pair under batch planning: the only admission shape where a
+#: query pends on a FOREIGN producer (§15 cohorts), i.e. where cancelling
+#: the producer exercises producer handoff rather than sealing
+BATCHED = dict(mode="graft", morsel_size=2048, batch_planning=True, batch_window=0.001)
 
 FAULT_MIXES = (
     ("morsel-light", {"morsel": 0.01}),
@@ -241,6 +245,41 @@ def test_submit_deadline_validation(tdb):
 # ---------------------------------------------------------------------------
 # Quarantine + unfold
 # ---------------------------------------------------------------------------
+
+
+def test_producer_handoff_preserves_survivor_results(tdb):
+    """Batched same-plan pairs where the producing query hits its deadline
+    mid-delivery: surviving beneficiaries adopt the residual extents and
+    finish bit-identical to the fault-free oracle. The machinery assertion
+    (handoffs > 0) keeps the scenario honest."""
+    handoffs = 0
+    deep = {"q3", "q4", "q5", "q7", "q9", "q10"}  # multi-join: several producers
+    for trial in range(8):
+        rng = np.random.default_rng(31_200 + trial)
+        q = queries.sample_query(tdb, rng)
+        while q.template not in deep:
+            q = queries.sample_query(tdb, rng)
+        oracle = refexec.execute(tdb, q.plan)
+        for deadline in (2e-5, 1e-4):
+            session = _connect(tdb, **BATCHED)
+            fa = session.submit(
+                queries.make_query(tdb, q.template, q.params, arrival=0.0),
+                deadline=deadline,
+            )
+            fb = session.submit(queries.make_query(tdb, q.template, q.params, arrival=0.0))
+            session.run()
+            eng = session._engine
+            handoffs += int(eng.counters["producer_handoffs"])
+            assert not eng._lens_leases, "lens leases must drain by idle"
+            assert eng.cohort_ctx is None
+            assert fb.status == "done", (trial, deadline, fb.status)
+            _assert_parity(fb.result(), oracle, f"handoff t{trial} dl={deadline}")
+            if fa.status == "done":
+                _assert_parity(fa.result(), oracle, f"handoff t{trial} fa")
+            else:
+                assert fa.status == "deadline"
+            session.close()
+    assert handoffs > 0, "no producer handoff exercised — scenario went stale"
 
 
 def test_unfold_marks_degraded_and_stays_correct(tdb):

@@ -200,7 +200,6 @@ def test_config_defaults_to_the_card():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(batch_planning=True),
         dict(mesh="smoke"),
     ],
 )
@@ -262,7 +261,9 @@ import numpy as np
 import torch
 import graftdb_torch
 from graftdb_torch import EngineConfig
-from repro_torch.core import costmodel, dag, faults, reuse
+from repro_torch.core import batchplan, costmodel, dag, faults, reuse
+from repro_torch.api import serving
+from repro_torch.serve import folding
 from repro_torch.kernels import flash_attention, linrec, ops, ref, seg_aggregate
 from repro_torch.relational import queries, refexec, tpch
 
@@ -286,6 +287,24 @@ for t in (0.0, 10.0):
     cached.run()
 assert cached.counters["cache_spills"] > 0
 cached.close()
+planned = graftdb_torch.connect(db, EngineConfig(
+    mode="graft", device="cpu", morsel_size=2048, batch_planning=True, batch_window=0.001,
+))
+burst = [queries.make_query(db, "q3", {"segment": 1.0, "date": d}, arrival=0.0)
+         for d in (740.0, 750.0, 760.0)]
+assert planned.explain_cohort(burst).plan.order[0] == burst[-1].qid
+futs = planned.submit_all(burst)
+planned.run()
+assert planned.counters["batch_cohorts"] == 1 and len(planned.cohort_log()) == 1
+for f in futs:
+    want = refexec.execute(db, f.query.plan)
+    for k, v in f.result().items():
+        np.testing.assert_allclose(np.asarray(v, float), np.asarray(want[k], float), rtol=1e-9)
+serve = graftdb_torch.connect_serving(config=graftdb_torch.ServingConfig(batch_fold=True))
+reqs = [folding.Request(i, tuple(range(50 + 30 * i)), 4, arrival=0.0) for i in range(3)]
+serve.submit_all(reqs)
+assert serve.run()["prefill_tokens"]["batch_folded"] == 2
+assert isinstance(serve, serving.ServingSession)
 q = rng.normal(size=(2, 128, 32)).astype(np.float32)
 out = ops.attention(q, q, q, window=64, device="cpu")
 torch.testing.assert_close(out, ref.flash_attention_ref(*[torch.from_numpy(q)] * 3, window=64),

@@ -94,15 +94,41 @@ itself and drives ``graftdb_torch``. Phases:
    over 4 prompts with a 1,024-token prefix) isolated, folded and folded
    with ``batch_fold``: every request's extents add up to its prompt and
    the folded legs prefill fewer tokens; it runs on the host alone;
+4d. mesh plane: phase 4's workload in graft mode on a one-shard mesh
+   (``mesh-smoke``: results, per-query stats, counters and the clock
+   bit-identical to phase 4's mesh-less graft leg, ``mesh_data_shards``
+   1, no exchange rows, every B1 launch made by the shard-local chain,
+   B2 and B4 launched), then mesh-less with ``partitions=workers=4``
+   (``oracle-4``) and on four shards of the card (``mesh-4``: results
+   equal to the reference executor at rtol 1e-9 and to ``oracle-4``
+   within 1e-12, the columns that are bit-identical counted; a clock no
+   earlier than the oracle's, exchange rows, rows on each of the four
+   shards; ``validate_mesh_plane``, at each completion that leaves more
+   live states' keys than the last check saw, over up to 2^21 of them,
+   places every row on its shard). Launch counts are reset before each
+   leg and read after it. Then the device plane at d = 2, 4 and 8: the
+   exchange of the orders' 1.5 M keys routed as ``key_partition`` (its
+   event mean, and the bytes its buffers would move per device, from
+   their shapes), 256 keys at capacity
+   4 recovered on grow and raising on raise, and the shard-local chain
+   bit-identical to the unsharded one at 65,536 rows with d launches of
+   B1; at d = 4 the partitioned join of lineitem's 6,003,210 order keys
+   (width 3) to orders (width 2), every row hitting and the values equal
+   to a host gather, the TPC-H Q1 groups summed over width 4 within 1e-4
+   of a float64 host sum, both with their event means, and the
+   db-plane record at 2^23 rows;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
    versions), in the default and the opt-in configuration, the repeat
    trace with a cache whose small memory tier demotes artifacts to the
    disk tier and the chaos leg's ``FaultPlan``, in both configurations,
-   and the burst trace with batch planning must give identical results,
-   statuses, counters, admission logs, cohort plans, backend stats and
-   virtual clocks; and on the card a trace of bursts of one with batch
-   planning on must be fingerprint-identical (results, counters, clock)
-   to the same trace with it off;
+   the burst trace with batch planning, and the workload on a four-shard
+   mesh must give identical results, statuses, counters, admission logs,
+   cohort plans, backend stats and virtual clocks (the mesh's
+   ``mesh_stats()``, its shards' device names aside, and
+   ``validate_mesh_plane`` records too, and the exchange of the orders'
+   keys the same bits); and on the card a trace of bursts of one with
+   batch planning on must be fingerprint-identical (results, counters,
+   clock) to the same trace with it off;
 6. kernel-ops path: ``repro_torch.kernels.ops.attention`` at
    recurrentgemma-9b's local attention (``[16, 4096, 256]``, window
    2,048) and starcoder2-7b's causal attention (``[36, 4096, 128]``),
@@ -129,7 +155,8 @@ itself and drives ``graftdb_torch``. Phases:
    two-stage chain with grants, filters and a sink), of the probes B2, B4
    and B3 (their replays), of B5 at 65,536 keys, of the four probes at one
    key and of the recurrence at ``[2, 4096, 4096]``, by kernel, memset and
-   copy; the segmented sum's phase-3 calls and its main-path
+   copy; the mesh plane's exchange at each d, join and aggregate, as the
+   sum of their kernels; the segmented sum's phase-3 calls and its main-path
    replay: the two passes by device time; all from ``torch.profiler``
    traces, last, since a trace leaves every later launch slower on the
    host; then the segmented sum's event mean again after the traces. The
@@ -335,6 +362,9 @@ SEG_ITERS = 200
 #: device time the last phase reads from a profiler trace
 #: (``trace_launch_path``)
 LAUNCH_TRACES = []
+#: the mesh plane's calls whose device time the last phase reads from a
+#: profiler trace (``trace_mesh``): their record and the call
+MESH_TRACES = []
 
 
 def seg_times(label, call, codes, vals, n_groups):
@@ -372,6 +402,20 @@ def trace_launch_path(report):
                 "device_ms": sum(recs[label].values())}
         for label in ("hash_probe_lens_multi", "hash_probe_lens_multi" + FLOOR)}
     log(f"hash_probe_lens_multi (on no engine path) at 65,536 keys and at one key: {b5}")
+
+
+def trace_mesh(report):
+    """Last phase: each recorded call of the mesh plane (the exchange at
+    each d, the join and the aggregate) by device time per call, the sum
+    of its CUDA kernels in a profiler trace, into its record beside the
+    CUDA-event mean (``event_ms``), which the host's enqueue of about 30
+    small kernels a shard sets."""
+    for rec, call in MESH_TRACES:
+        per_kernel = kernel_device_ms(call, 5)
+        rec["device_ms"] = sum(per_kernel.values())
+        rec["device_kernels"] = len(per_kernel)
+        log(f"mesh {rec['label']}: {rec['device_ms']:.4f} ms on the device a call "
+            f"({rec['device_kernels']} kernel names), {rec['event_ms']:.4f} ms by event mean")
 
 
 def trace_seg_passes(report):
@@ -869,8 +913,8 @@ class Recorder:
         return call
 
     def _wrap(self, orig, name):
-        def call(*args):
-            out = orig(*args)
+        def call(*args, **kw):
+            out = orig(*args, **kw)
             if name == "hash_build_insert" and not int(out[2][0]):
                 return out  # keep the largest rebuild that built a table
             if name == "fused_chain":
@@ -927,11 +971,13 @@ def workload(db, n, seed):
     return qs
 
 
-def run_session(db, qs, qid_base=None, **cfg):
+def run_session(db, qs, qid_base=None, watch=None, **cfg):
     """One session over the workload; returns it, the futures and the wall
     seconds of ``run()``. With ``qid_base`` the i-th query gets the id
     ``qid_base + i`` (queries are numbered process-wide, and cohort plans
-    and admission logs name them by id), so two runs compare by id."""
+    and admission logs name them by id), so two runs compare by id. With
+    ``watch``, ``watch(session)`` runs at each query's completion, while
+    the queries still running hold their states; it submits nothing."""
     import dataclasses
 
     import graftdb_torch
@@ -943,7 +989,7 @@ def run_session(db, qs, qid_base=None, **cfg):
         built = [dataclasses.replace(q, qid=qid_base + i) for i, q in enumerate(built)]
     futs = session.submit_all(built)
     t0 = time.perf_counter()
-    session.run()
+    session.run(None if watch is None else lambda fut: watch(session))
     return session, futs, time.perf_counter() - t0
 
 
@@ -988,11 +1034,28 @@ def cohort_plans(session):
     return [(e["cohort"], e["t"], e["plan"].to_dict()) for e in session.cohort_log()]
 
 
-def twin(db, qs, optin=False, **cfg):
+def same_results(label, got, want):
+    """Two lists of outcomes (:func:`outcomes`), bit for bit: the same
+    status where a query did not complete, else the same columns with
+    equal values."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if isinstance(a, str) or isinstance(b, str):
+            if a != b:
+                raise AssertionError(f"{label}/q{i}: status {a!r} != {b!r}")
+            continue
+        if set(a) != set(b):
+            raise AssertionError(f"{label}/q{i}: columns {sorted(a)} != {sorted(b)}")
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{label}/q{i}/{k}")
+
+
+def twin(db, qs, optin=False, probe=None, **cfg):
     """The same workload on the card and on the CPU must give identical
     runs, in the default config or (``optin``) with the opt-in kernels:
     results, the status of each query that did not complete, counters,
-    admission logs, cohort plans, backend stats and clocks."""
+    admission logs, cohort plans, backend stats and clocks; and, with
+    ``probe``, what ``probe(session)`` returns after the run (a dict,
+    compared key by key and kept under ``"probe"``)."""
     from repro_torch.api.backends import TorchBackend
 
     runs = []
@@ -1000,17 +1063,13 @@ def twin(db, qs, optin=False, **cfg):
         where = dict(backend=TorchBackend(device=dev, **OPTIN)) if optin else dict(device=dev)
         session, futs, _ = run_session(db, qs, qid_base=TWIN_QID_BASE, **where, **cfg)
         admissions = [session._runner.admission_log.get(f.qid) for f in futs]
-        runs.append((session, outcomes(futs), admissions, cohort_plans(session)))
-    (s_gpu, r_gpu, a_gpu, p_gpu), (s_cpu, r_cpu, a_cpu, p_cpu) = runs
-    for i, (a, b) in enumerate(zip(r_gpu, r_cpu)):
-        if isinstance(a, str) or isinstance(b, str):
-            if a != b:
-                raise AssertionError(f"twin/q{i}: status {a!r} on the card, {b!r} on the CPU")
-            continue
-        if set(a) != set(b):
-            raise AssertionError(f"twin/q{i}: columns differ")
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=f"twin/q{i}/{k}")
+        runs.append((session, outcomes(futs), admissions, cohort_plans(session),
+                     probe(session) if probe else {}))
+    (s_gpu, r_gpu, a_gpu, p_gpu, x_gpu), (s_cpu, r_cpu, a_cpu, p_cpu, x_cpu) = runs
+    same_results("twin (card vs CPU)", r_gpu, r_cpu)
+    for k in x_gpu:
+        if x_gpu[k] != x_cpu[k]:
+            raise AssertionError(f"twin: {k} differ: {x_gpu[k]} != {x_cpu[k]}")
     if dict(s_gpu.counters) != dict(s_cpu.counters):
         diff = {k: (s_gpu.counters[k], s_cpu.counters.get(k)) for k in s_gpu.counters
                 if s_gpu.counters[k] != s_cpu.counters.get(k)}
@@ -1027,6 +1086,8 @@ def twin(db, qs, optin=False, **cfg):
            "not_done": sum(isinstance(r, str) for r in r_gpu)}
     out.update({k: s_gpu.counters[k] for k in REUSE_COUNTERS + BATCH_COUNTERS})
     out["cohorts"] = len(p_gpu)
+    if probe:
+        out["probe"] = x_gpu
     s_gpu.close()
     s_cpu.close()
     return out
@@ -1628,6 +1689,362 @@ def serving_phase(report):
 
 
 # ---------------------------------------------------------------------------
+# the mesh plane
+# ---------------------------------------------------------------------------
+
+#: phase 4d: the data-axis sizes of the device plane, the shards of the
+#: ``mesh-4`` leg and the join and aggregate, the rows of the mesh-4
+#: session's exchange validation, of the chain parity and of the db-plane
+#: record, the deliberate overflow (keys, capacity), and the aggregate's
+#: tolerance against a float64 host sum
+MESH_SHARDS = (2, 4, 8)
+MESH_LEG_SHARDS = 4
+MESH_SAMPLE_ROWS = 2**21
+MESH_CHAIN_ROWS = 65_536
+MESH_PLANE_ROWS = 1 << 23
+MESH_OVERFLOW = (256, 4)
+MESH_AGG_RTOL = 1e-4
+#: results of the ``mesh-4`` leg against the mesh-less ``partitions=4``
+#: leg: device affinity runs the partition units in another order, so a
+#: float64 sum may differ in its last bit (the reference's own mesh=2
+#: session does, by 1 ulp, at SF 0.01; ``tests/test_torch_mesh.py``)
+MESH_ORACLE_RTOL = 1e-12
+#: B1, B2 and B4: the kernels the ``mesh-smoke`` leg must launch
+MESH_KERNELS = ("fused_chain", "hash_probe_lens64", "hash_probe_lens")
+
+
+def snapshot(session, futs):
+    """What two runs of one trace share when they are the same run:
+    results, per-query stats (query ids aside), counters, clock."""
+    return {"results": outcomes(futs),
+            "stats": [{k: v for k, v in f.stats().items() if k != "qid"} for f in futs],
+            "counters": dict(session.counters), "now": session.now}
+
+
+def mesh_leg(db, qs, label, cfg, report, watch=None):
+    """One session of phase 4d on the card: launch counts reset before it
+    and read after it; and the sharded chain calls counted (the wrapper of
+    ``fused_chain._launch_sharded``, which the backend reaches only
+    through ``chain_launch(mesh=...)``). ``watch`` goes to
+    :func:`run_session`."""
+    import torch
+
+    from repro_torch.kernels import _build, fused_chain
+
+    sharded = [0, 0.0]
+    orig = fused_chain._launch_sharded
+    fused_chain._launch_sharded = Recorder._timed(orig, sharded)
+    _build.reset_launch_counts()
+    try:
+        session, futs, wall = run_session(db, qs, watch=watch, **cfg)
+        torch.cuda.synchronize()
+    finally:
+        fused_chain._launch_sharded = orig
+    launches = _build.launch_counts()
+    rec = {"wall_s": wall, "now_s": session.now, "launches": launches,
+           "sharded_chain_calls": sharded[0], "backend": session.backend.stats()}
+    if session.mesh is not None:
+        stats = session.mesh_stats()
+        stats["states"] = len(stats["states"])
+        rec["mesh_stats"] = stats
+        rec["mesh_data_shards"] = session.stats()["mesh_data_shards"]
+    report["launches"][label] = launches
+    log(f"mesh leg {label}: wall {wall:.3f} s, clock {session.now!r} s, launches {launches}, "
+        f"sharded chain calls {sharded[0]}, mesh {rec.get('mesh_stats')}")
+    return session, futs, rec
+
+
+def mesh_exchange(okeys, d, out):
+    """Exchange routing of the orders' keys on a d-shard mesh of the card
+    against ``key_partition``: every shard receives exactly its keys, and
+    the exchange's event mean (its device time comes last,
+    ``trace_mesh``) and the bytes its buffers would move per device,
+    modelled from their shapes (on one card nothing crosses a link)."""
+    import torch
+
+    from repro_torch.core.hashindex import key_partition
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.relational import distributed as dist
+
+    mesh = make_data_mesh(d)
+    dest = key_partition(okeys, d)
+    vals = okeys.astype(np.float32)[:, None]
+    t0 = time.perf_counter()
+    rec = dist.exchange_by_key(mesh, okeys, vals, dest=dest)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cap = rec["capacity"]
+    got_k = rec["keys"].cpu().numpy().reshape(d, d * cap)
+    got_ok = rec["valid"].cpu().numpy().reshape(d, d * cap)
+    got_v = rec["values"].cpu().numpy().reshape(d, d * cap)
+    for p in range(d):
+        if not np.array_equal(np.sort(got_k[p][got_ok[p]]), np.sort(okeys[dest == p])):
+            raise AssertionError(f"exchange d={d}: shard {p} did not receive its keys")
+        if not np.array_equal(got_v[p][got_ok[p]], got_k[p][got_ok[p]].astype(np.float32)):
+            raise AssertionError(f"exchange d={d}: shard {p}'s values left their keys")
+    staged = [t.cuda() for t in dist.pad_partition(okeys, vals, d, dest=dest)]
+    fn = dist.make_partitioned_exchange(mesh, 1, cap)
+    ms = time_ms(lambda: fn(*staged), 5)
+    moved = dist.exchange_bytes(d, cap, 1)
+    keys_n, over_n = MESH_OVERFLOW
+    few = np.arange(1, keys_n + 1, dtype=np.int64)
+    grown = dist.exchange_by_key(mesh, few, few.astype(np.float32), capacity=over_n)
+    ok = grown["valid"].cpu().numpy()
+    if not np.array_equal(np.sort(grown["keys"].cpu().numpy()[ok]), few) \
+            or grown["bucket_overflow_rows"] <= 0 or grown["attempts"] <= 1:
+        raise AssertionError(f"overflow d={d}: not recovered on grow: "
+                             f"{ {k: grown[k] for k in ('capacity', 'attempts', 'bucket_overflow_rows')} }")
+    try:
+        dist.exchange_by_key(mesh, few, few.astype(np.float32), capacity=over_n, on_overflow="raise")
+    except dist.BucketOverflowError:
+        pass
+    else:
+        raise AssertionError(f"overflow d={d}: on_overflow='raise' did not raise")
+    out[d] = {"label": f"exchange d={d}", "keys": len(okeys), "capacity": cap,
+              "attempts": rec["attempts"], "bucket_overflow_rows": rec["bucket_overflow_rows"],
+              "wall_s": wall, "event_ms": ms, "modelled_bytes_per_device": moved,
+              "overflow_grow": {k: grown[k] for k in ("capacity", "attempts",
+                                                      "bucket_overflow_rows")}}
+    MESH_TRACES.append((out[d], lambda: fn(*staged)))
+    log(f"exchange d={d}: {len(okeys)} order keys routed as key_partition, capacity {cap}, "
+        f"{ms:.4f} ms by event mean, {moved} bytes a device by the shapes; overflow of "
+        f"{keys_n} keys at capacity {over_n}: grown to {grown['capacity']} in {grown['attempts']} attempts, "
+        f"raise raises")
+    return mesh
+
+
+def mesh_join_and_aggregate(db, mesh, out):
+    """At d = 4: lineitem's order keys (width 3) joined to orders (width
+    2), every lineitem row hits and the joined values equal a host gather;
+    TPC-H Q1's groups (returnflag x linestatus) summed over width 4 within
+    ``MESH_AGG_RTOL`` of a float64 host sum. Event means of both (their
+    device times come last, ``trace_mesh``)."""
+    import torch
+
+    from repro_torch.relational import distributed as dist
+
+    d = int(mesh.shape["data"])
+    li, od = db["lineitem"].columns, db["orders"].columns
+    okeys = od["o_orderkey"].astype(np.int64)
+    ovals = np.stack([od["o_totalprice"], od["o_orderdate"]], -1).astype(np.float32)
+    lkeys = li["l_orderkey"].astype(np.int64)
+    lvals = np.stack([li["l_quantity"], li["l_extendedprice"], li["l_discount"]],
+                     -1).astype(np.float32)
+    cap = 2 * -(-len(lkeys) // (d * d))
+    join = dist.make_partitioned_join(mesh, 2, 3, capacity=cap)
+    staged = [t.cuda() for t in (*dist.pad_partition(okeys, ovals, d)[:2],
+                                 *dist.pad_partition(lkeys, lvals, d)[:2])]
+    res, hit, keys, overflow = join(*staged)
+    torch.cuda.synchronize()
+    hit, keys, res = hit.cpu().numpy(), keys.cpu().numpy(), res.cpu().numpy()
+    if int(overflow) != 0 or int(hit.sum()) != len(lkeys):
+        raise AssertionError(f"join: {int(hit.sum())} of {len(lkeys)} lineitem rows hit, "
+                             f"overflow {int(overflow)}")
+    order = np.argsort(okeys)
+    gather = ovals[order[np.searchsorted(okeys[order], keys[hit])]]
+    if not np.array_equal(res[hit, 3:], gather):
+        raise AssertionError("join: joined orders values differ from the host gather")
+    got_rows = np.column_stack([keys[hit].astype(np.float64), res[hit, :3]])
+    want_rows = np.column_stack([lkeys.astype(np.float64), lvals])
+    got_rows = got_rows[np.lexsort(got_rows.T[::-1])]
+    want_rows = want_rows[np.lexsort(want_rows.T[::-1])]
+    if not np.array_equal(got_rows, want_rows):
+        raise AssertionError("join: the joined lineitem rows differ from lineitem's")
+    join_ms = time_ms(lambda: join(*staged), 3)
+    moved = dist.exchange_bytes(d, cap, 2) + dist.exchange_bytes(d, cap, 3)
+    join_in = staged
+    del res
+
+    gids = (li["l_returnflag"] * 2 + li["l_linestatus"]).astype(np.int64)
+    avals = np.stack([li["l_quantity"], li["l_extendedprice"], li["l_discount"], li["l_tax"]],
+                     -1).astype(np.float32)
+    n_groups = 6
+    agg = dist.make_partitioned_aggregate(mesh, n_groups, 4)
+    staged = [t.cuda() for t in dist.pad_groups(gids, avals, d)]
+    sums = agg(*staged).cpu().numpy()
+    want = np.stack([np.bincount(gids, weights=avals[:, w].astype(np.float64),
+                                 minlength=n_groups) for w in range(4)], -1)
+    nz = want != 0
+    rel = float(np.max(np.abs(sums[nz] - want[nz]) / np.abs(want[nz])))
+    if rel > MESH_AGG_RTOL or np.any(sums[~nz] != 0):
+        raise AssertionError(f"aggregate: relative error {rel} above {MESH_AGG_RTOL}")
+    agg_ms = time_ms(lambda: agg(*staged), 3)
+    out["join"] = {"label": f"join d={d}", "probe_rows": len(lkeys), "build_rows": len(okeys),
+                   "capacity": cap, "hits": int(hit.sum()), "event_ms": join_ms,
+                   "modelled_bytes_per_device": moved}
+    out["aggregate"] = {"label": f"aggregate d={d}", "rows": len(gids), "groups": n_groups,
+                        "groups_present": int(nz.any(-1).sum()),
+                        "max_rel_err_vs_float64": rel, "event_ms": agg_ms}
+    MESH_TRACES.append((out["join"], lambda: join(*join_in)))
+    MESH_TRACES.append((out["aggregate"], lambda: agg(*staged)))
+    log(f"join d={d}: {len(lkeys)} lineitem rows x {len(okeys)} orders, every row hits, values "
+        f"== host gather, overflow 0; {join_ms:.3f} ms by event mean, {moved} bytes a device "
+        f"by the shapes. aggregate Q1 groups: max rel err {rel:.3g} vs float64 (limit "
+        f"{MESH_AGG_RTOL}); {agg_ms:.3f} ms by event mean")
+
+
+def mesh_phase(db, qs, expected, base, report):
+    """Phase 4d: the mesh plane at SF 1 on the card. Legs ``mesh-smoke``
+    (phase 4's workload, graft mode, ``mesh="smoke"``), ``oracle-4``
+    (mesh-less, ``partitions=workers=4``) and ``mesh-4`` (``mesh=4``, four
+    shards on the card); then the device plane at d in ``MESH_SHARDS``,
+    and the join, the aggregate and the db-plane record at d = 4."""
+    import torch
+
+    from repro_torch.launch.db_plane import _chain_parity, db_plane_record, validate_db_plane_record
+
+    out = report["mesh"] = {"legs": {}, "exchange": {}, "chain_parity": {}}
+    smoke, futs, rec = mesh_leg(db, qs, "mesh-smoke", dict(mode="graft", mesh="smoke"), report)
+    got = snapshot(smoke, futs)
+    same_results("mesh-smoke vs graft", got["results"], base["results"])
+    for k in ("stats", "counters", "now"):
+        if got[k] != base[k]:
+            raise AssertionError(f"mesh-smoke: {k} differ from the mesh-less graft leg")
+    if rec["mesh_data_shards"] != 1 or rec["mesh_stats"]["mesh_exchange_rows"] != 0:
+        raise AssertionError(f"mesh-smoke: {rec['mesh_data_shards']} shards, "
+                             f"{rec['mesh_stats']['mesh_exchange_rows']} exchange rows")
+    if smoke.backend.mesh is not smoke.mesh:
+        raise AssertionError("mesh-smoke: the backend's chain is not on the session mesh")
+    missing = [k for k in MESH_KERNELS if rec["launches"].get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"mesh-smoke: kernels never launched: {missing}")
+    if rec["sharded_chain_calls"] != rec["launches"]["fused_chain"]:
+        raise AssertionError(f"mesh-smoke: {rec['launches']['fused_chain']} B1 launches, "
+                             f"{rec['sharded_chain_calls']} shard-local calls")
+    out["legs"]["mesh-smoke"] = rec
+    smoke.close()
+    del smoke, futs, got
+
+    n = MESH_LEG_SHARDS
+    oracle, ofuts, orec = mesh_leg(db, qs, f"oracle-{n}", dict(mode="graft", partitions=n,
+                                                             workers=n), report)
+    live = {"keys": 0, "checks": 0, "watch_s": 0.0}
+
+    def validate_live(session):
+        """At each completion that leaves more live-state keys than the
+        last check saw, ``validate_mesh_plane`` over them."""
+        t0 = time.perf_counter()
+        keys = live_state_keys(session)
+        if keys > live["keys"]:
+            t1 = time.perf_counter()
+            check = session.validate_mesh_plane(sample_rows=MESH_SAMPLE_ROWS)
+            torch.cuda.synchronize()
+            check["wall_s"] = time.perf_counter() - t1
+            live.update(keys=keys, check=check, checks=live["checks"] + 1)
+        live["watch_s"] += time.perf_counter() - t0
+
+    meshed, mfuts, mrec = mesh_leg(db, qs, f"mesh-{n}", dict(mode="graft", mesh=n), report,
+                                   watch=validate_live)
+    mrec["wall_s"] -= live["watch_s"]  # the leg's own time, without the checks
+    res_o, res_m = outcomes(ofuts), outcomes(mfuts)
+    worst = check_results(f"mesh-{n} vs refexec", res_m, expected)
+    diff = check_results(f"mesh-{n} vs oracle-{n}", res_m, res_o, rtol=MESH_ORACLE_RTOL)
+    columns = [(i, k) for i, r in enumerate(res_o) for k in r]
+    unequal = [f"q{i}/{k}" for i, k in columns if not np.array_equal(res_m[i][k], res_o[i][k])]
+    st = mrec["mesh_stats"]
+    if meshed.now < oracle.now:
+        raise AssertionError(f"mesh-{n}: clock {meshed.now!r} below the oracle's {oracle.now!r}")
+    if st["mesh_exchange_rows"] <= 0 or len(st["rows_by_device"]) != n \
+            or min(st["rows_by_device"]) <= 0:
+        raise AssertionError(f"mesh-{n}: exchange rows {st['mesh_exchange_rows']}, rows by "
+                             f"device {st['rows_by_device']}")
+    if mrec["launches"].get("fused_chain", 0) == 0:
+        raise AssertionError(f"mesh-{n}: B1 never launched")
+    mrec.update(max_rel_err=worst, max_rel_diff_vs_oracle=diff,
+                columns_bit_identical_to_oracle=len(columns) - len(unequal),
+                columns=len(columns), columns_differing=unequal)
+    check = live.get("check")
+    if check is None:
+        raise AssertionError(f"mesh-{n}: no completion left a live state to validate over")
+    if not check["routing_matches_state_shards"] or check["rows_lost"] != 0 \
+            or check["rows"] != min(live["keys"], MESH_SAMPLE_ROWS):
+        raise AssertionError(f"mesh-{n}: validate_mesh_plane over {live['keys']} live-state "
+                             f"keys: {check}")
+    check.update(key_source="live states", live_state_keys=live["keys"], checks=live["checks"],
+                 watch_s=live["watch_s"])
+    mrec["validate_mesh_plane"] = check
+    out["legs"][f"oracle-{n}"], out["legs"][f"mesh-{n}"] = orec, mrec
+    log(f"mesh-{n}: results == refexec (rtol 1e-9, largest {worst:.3g}), == oracle-{n} within "
+        f"{MESH_ORACLE_RTOL} ({len(columns) - len(unequal)} of {len(columns)} columns bit for bit, "
+        f"largest {diff:.3g}); clock {meshed.now!r} >= {oracle.now!r}; validate_mesh_plane "
+        f"{check}")
+    meshed.close()
+    oracle.close()
+    del meshed, oracle, mfuts, ofuts
+
+    okeys = db["orders"].columns["o_orderkey"].astype(np.int64)
+    for d in MESH_SHARDS:
+        mesh = mesh_exchange(okeys, d, out["exchange"])
+        block = _chain_parity(mesh, rows=MESH_CHAIN_ROWS)
+        if not block["parity"] or block["matched_rows"] <= 0 or block["shard_launches"] != d:
+            raise AssertionError(f"chain parity d={d}: {block}")
+        out["chain_parity"][d] = block
+        log(f"chain parity d={d}: bit-identical, {block['shard_launches']} B1 launches, "
+            f"{block['matched_rows']} rows matched")
+        if d == n:
+            mesh_join_and_aggregate(db, mesh, out)
+            t0 = time.perf_counter()
+            plane = validate_db_plane_record(db_plane_record(
+                mesh, rows=MESH_PLANE_ROWS, chain_rows=MESH_CHAIN_ROWS))
+            plane["wall_s"] = time.perf_counter() - t0
+            out["db_plane"] = plane
+            log(f"db-plane record d={d}: valid; {plane['hlo_stats']}")
+
+
+def live_state_keys(session):
+    """How many keys ``validate_mesh_plane`` samples from: those of the
+    live states whose keycodes fit the exchange's key width."""
+    from repro_torch.relational.distributed import KEY_LIMIT
+
+    return sum(len(st.keycode.data) for states in session._engine.state_index.values()
+               for st in states
+               if len(st.keycode.data) and int(np.abs(st.keycode.data).max()) <= KEY_LIMIT)
+
+
+def mesh_probe(session):
+    """What a mesh twin compares beyond :func:`twin`'s run: ``mesh_stats()``
+    (the shards' device names aside, which must name the session's
+    device) and a ``validate_mesh_plane`` record."""
+    stats = session.mesh_stats()
+    devices = stats.pop("devices")
+    kind = session.backend.device.type
+    if len(devices) != MESH_LEG_SHARDS or not all(x.startswith(kind) for x in devices):
+        raise AssertionError(f"twin mesh: devices {devices} on {kind}")
+    return {"mesh_stats": stats, "validate_mesh_plane": session.validate_mesh_plane()}
+
+
+def mesh_twin(tdb, tqs, report):
+    """``mesh=4`` at the twins' scale: :func:`twin` with
+    :func:`mesh_probe`, and the exchange of the orders' keys gives the
+    same bits on the card and on the CPU."""
+    import torch
+
+    from repro_torch.core.hashindex import key_partition
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.relational import distributed as dist
+
+    n = MESH_LEG_SHARDS
+    rec = twin(tdb, tqs, probe=mesh_probe, mode="graft", mesh=n)
+    okeys = tdb["orders"].columns["o_orderkey"].astype(np.int64)
+    ex = [dist.exchange_by_key(make_data_mesh(n, dev), okeys, okeys.astype(np.float32),
+                               dest=key_partition(okeys, n), capacity=4)
+          for dev in ("cuda", "cpu")]
+    torch.cuda.synchronize()
+    for k in ("keys", "values", "valid"):
+        if not torch.equal(ex[0][k].cpu(), ex[1][k]):
+            raise AssertionError(f"twin mesh: exchange {k} differ across devices")
+    if any(ex[0][k] != ex[1][k] for k in ("capacity", "attempts", "bucket_overflow_rows")):
+        raise AssertionError("twin mesh: exchange accounting differs across devices")
+    stats = rec["probe"]["mesh_stats"]
+    report["twin"]["mesh"] = {"now_s": rec["now_s"], "mesh_exchange_rows": stats["mesh_exchange_rows"],
+                              "rows_by_device": stats["rows_by_device"],
+                              "exchange_attempts": ex[0]["attempts"]}
+    log(f"twin mesh={n} SF {TWIN_SCALE}: cuda == cpu (results, counters, admission logs, "
+        f"backend stats, clock, mesh_stats, validate_mesh_plane); the exchange's bits equal "
+        f"across devices")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1645,16 +2062,19 @@ def q5_pair(db):
     ]
 
 
-def run_legs(db, legs, required, label_launches, report):
+def run_legs(db, legs, required, label_launches, report, kept=None):
     """Run sessions on the card, reset the launch counts before them and
     read them after; every result within its tolerance of the reference
-    executor and every ``required`` kernel launched."""
+    executor and every ``required`` kernel launched. ``kept`` gets each
+    leg's ``snapshot``, for later phases to compare with."""
     from repro_torch.kernels import _build
 
     _build.reset_launch_counts()
     for label, cfg, lqs, want, rtol in legs:
         session, futs, wall = run_session(db, lqs, **cfg)
         results = outcomes(futs)
+        if kept is not None:
+            kept[label] = snapshot(session, futs)
         worst = check_results(label, results, want, rtol)
         summ = leg_summary(session, wall)
         summ["max_rel_err"] = worst
@@ -1740,8 +2160,9 @@ def smoke(report):
     )
     recorder = Recorder()
     report["legs"], report["launches"] = {}, {}
+    kept = {}
     try:
-        default_launches = run_legs(db, legs, MAIN_KERNELS, "default", report)
+        default_launches = run_legs(db, legs, MAIN_KERNELS, "default", report, kept)
         engine = recorder.engine_times()
         optin_launches = run_legs(db, optin_leg, OPTIN_KERNELS, "opt-in", report)
     finally:
@@ -1793,7 +2214,10 @@ def smoke(report):
     # 4c. the batch-planning path at the full scale, and the serving plane
     batch_phase(db, report)
     serving_phase(report)
-    del db
+
+    # 4d. the mesh plane at the full scale
+    mesh_phase(db, qs, expected, kept["graft"], report)
+    del db, kept
 
     # 5. twins: card and CPU give identical runs
     t0 = time.perf_counter()
@@ -1815,8 +2239,10 @@ def smoke(report):
             if rec[k] <= 0:
                 raise AssertionError(f"twin {label}: {k} is {rec[k]}")
     batch_twins(tdb, report)
+    mesh_twin(tdb, tqs, report)
     log(f"twins SF {TWIN_SCALE}: cuda == cpu (results, counters, admission logs, cohort "
-        f"plans, backend stats, clock); singleton bursts: planning on == off "
+        f"plans, backend stats, clock; the mesh twin's mesh_stats and exchange too); "
+        f"singleton bursts: planning on == off "
         f"in {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -2109,6 +2535,7 @@ def main():
     rows = smoke(report)
     rows += kernel_ops(report)
     trace_launch_path(report)
+    trace_mesh(report)
     trace_seg_passes(report)
 
     OUT_DIR.mkdir(exist_ok=True)

@@ -291,6 +291,10 @@ class TorchBackend:
                 "visible; pass device='cpu' for the kernels' plain versions"
             )
         self._ref = ReferenceBackend()
+        # mesh execution (§14): when a Session pins a one-shard data mesh
+        # here, the fused stage chain launches shard-locally on it
+        # (None = plain single-device launches)
+        self.mesh = None
         # Probe tables keyed weakly by the state OBJECT (state_ids are
         # engine-local, so an id key would collide when one backend instance
         # is reused across sessions); released states evict automatically.
@@ -589,7 +593,7 @@ class TorchBackend:
         spec = (tuple(spec_stages), sink is not None)
         # one copy up, the launch, one copy down, one wait
         stage.upload()
-        flat = stage.fetch(chain_launch(spec, arrays))
+        flat = stage.fetch(chain_launch(spec, arrays, mesh=self.mesh))
         out = split_outputs(spec, npad, flat)
         n_stages = len(stages)
 

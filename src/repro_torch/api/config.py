@@ -15,6 +15,7 @@ from typing import Dict, Optional, Union
 
 from ..core.engine import DEFAULT_COST_MODEL, MODES
 from ..core.scheduler import WallClock, WorkClock
+from ..launch.mesh import mesh_data_size, resolve_mesh
 
 CLOCKS = ("work", "wall")
 BACKENDS = ("reference", "torch")
@@ -23,13 +24,6 @@ DEVICES = ("cuda", "cpu")
 # zero-ref states for later grafts under a memory-budgeted evictor (§10).
 RETENTION_POLICIES = ("refcount", "epoch")
 ADMISSION_POLICIES = ("always", "adaptive")
-
-
-def _not_ported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} belongs to a plane the PyTorch port does not have yet "
-        f"(ROADMAP {item}); use the reference package for it"
-    )
 
 
 def _default_workers() -> int:
@@ -94,6 +88,15 @@ class EngineConfig:
       ``workers=1, partitions=1`` is byte-identical to the seed engine.
     * ``max_sleep_s`` — WallClock sleep cap: longer idle gaps are skipped
       virtually instead of blocking (None = sleep the full gap).
+    * ``mesh`` — mesh execution over the 'data' axis (DESIGN.md §14):
+      ``'smoke'`` (one-shard mesh, production axis names), an int N (N-way
+      data mesh: shard p on ``cuda:(p mod device_count)``, so N shards
+      share one card unless more are visible; on the CPU with
+      ``device="cpu"``), or a ``repro_torch.launch.mesh.DataMesh``. Pins
+      ``partitions`` and ``workers`` to the data-axis size P — state
+      shards, worker clocks, and devices map one-to-one — and charges the
+      per-stage exchange cost model term. ``None`` (default) is the
+      single-host engine.
     * ``batch_planning`` — graft-aware batch planning (DESIGN.md §15):
       arrivals due at one decision step are windowed into cohorts and
       admitted in the joint planner's provider-first order (maximizing
@@ -107,18 +110,13 @@ class EngineConfig:
       batches only same-instant ties.
     * ``faults`` — deterministic chaos injection (DESIGN.md §16): a seeded
       ``core.faults.FaultPlan`` arms the engine's fault hooks (morsel /
-      rehydrate / stall sites; the exchange site waits for the mesh plane),
-      replayed bit-identically under the virtual clock. ``None`` (default)
-      disarms every hook.
+      exchange / rehydrate / stall sites), replayed bit-identically under
+      the virtual clock. ``None`` (default) disarms every hook.
     * ``member_major`` — the fused packed-mask morsel pipeline (DESIGN.md
       §11): per-morsel data-plane cost independent of the folded member
       count. False selects the retained per-member loops — the
       differential oracle the fused path is verified against (results,
       probe pair streams, and EXPLAIN GRAFT accounting are bit-identical).
-
-    The reference's ``mesh`` belongs to a plane the port does not have yet:
-    setting it raises ``NotImplementedError`` naming the ROADMAP item that
-    ports it.
     """
 
     mode: str = "graft"
@@ -232,7 +230,30 @@ class EngineConfig:
                 f"partitions must be a positive int or None (= workers), got {self.partitions!r}"
             )
         if self.mesh is not None:
-            raise _not_ported("mesh", "A3")
+            p = mesh_data_size(self.mesh)  # validates the spec shape
+            if self.partitions is not None and self.partitions != p:
+                raise ValueError(
+                    f"mesh execution pins partitions to the data-axis size "
+                    f"({p}); got partitions={self.partitions}. Drop the "
+                    "partitions override or match the mesh shape."
+                )
+            object.__setattr__(self, "partitions", p)
+            if self.workers != p:
+                if self.workers == _default_workers():
+                    # the worker count came from the env default, not an
+                    # explicit request: pin it to the device count
+                    object.__setattr__(self, "workers", p)
+                else:
+                    raise ValueError(
+                        f"mesh execution pins workers to the data-axis size "
+                        f"({p}) — one logical worker clock per device; got "
+                        f"workers={self.workers}"
+                    )
+            if p > 1 and self._wall_clocked():
+                raise ValueError(
+                    "mesh execution with data shards > 1 requires a virtual "
+                    "clock: use clock='work' or a clock factory"
+                )
         if self.workers > 1 and self._wall_clocked():
             # N logical workers advance N independent virtual clocks; a
             # wall clock (class, instance, or one shared instance) cannot
@@ -317,6 +338,13 @@ class EngineConfig:
         from .backends import resolve_backend
 
         return resolve_backend(self.backend, self.device)
+
+    def make_mesh(self, device: Optional[str] = None):
+        """Resolve the ``mesh`` spec to a mesh (None when unset), its shards
+        on ``device`` (default: the config's ``device``)."""
+        if self.mesh is None:
+            return None
+        return resolve_mesh(self.mesh, device or self.device)
 
     def make_admission(self):
         """Admission controller for the session's Runner (None = admit all)."""

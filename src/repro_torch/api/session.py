@@ -36,6 +36,17 @@ class Session:
         self.config = config or EngineConfig()
         self.db = db
         self.backend = self.config.make_backend()
+        # Mesh execution (DESIGN.md §14): resolve the config's mesh spec to
+        # a data mesh (its shards on the backend's device) + replicated
+        # MeshPlan; config validation already pinned partitions = workers =
+        # data-axis size.
+        device = getattr(self.backend, "device", None)
+        self.mesh = self.config.make_mesh(None if device is None else str(device))
+        self._mesh_plan = None
+        if self.mesh is not None:
+            from ..core.meshexec import MeshPlan
+
+            self._mesh_plan = MeshPlan(self.mesh)
         self._engine = GraftEngine(
             db,
             mode=self.config.mode,
@@ -50,7 +61,13 @@ class Session:
             reuse_cache_budget=self.config.reuse_cache_budget,
             reuse_disk_budget=self.config.reuse_disk_budget,
             faults=self.config.faults,
+            mesh_plan=self._mesh_plan,
         )
+        if self._mesh_plan is not None and hasattr(self.backend, "probe_chain"):
+            # single-shard data mesh: the fused stage chain launches
+            # shard-locally on the session mesh (§14); multi-shard routing
+            # goes through the bucketed exchange instead
+            self.backend.mesh = self.mesh if self._mesh_plan.n_shards == 1 else None
         admission = self.config.make_admission()
         batch_kw = dict(
             batch_planning=self.config.batch_planning,
@@ -241,6 +258,81 @@ class Session:
         return out
 
     # -- lifecycle -----------------------------------------------------------
+    def mesh_stats(self) -> Dict[str, object]:
+        """Per-device view of the mesh execution (§14): data-shard count,
+        exchange accounting, the first-stage routing histogram, and every
+        live state's device layout + per-device extent frontiers. Empty
+        dict on mesh-less sessions."""
+        if self._mesh_plan is None:
+            return {}
+        out = self._mesh_plan.stats()
+        out["mesh_exchange_rows"] = self._engine.counters["mesh_exchange_rows"]
+        out["bucket_overflow_rows"] = self._engine.counters["bucket_overflow_rows"]
+        live = [
+            st
+            for states in self._engine.state_index.values()
+            for st in states
+        ]
+        retired = [
+            st
+            for st in self._engine.lifecycle.retired.values()
+            if hasattr(st, "device_layout")
+        ]
+        out["states"] = [st.device_layout() for st in live + retired]
+        return out
+
+    def validate_mesh_plane(self, sample_rows: int = 4096) -> Dict[str, object]:
+        """Run one real bucketed exchange on the session mesh's devices
+        and check it against the replicated control plane's routing: every
+        row must land on the device that owns its key shard, with zero rows
+        lost (overflow is recovered by regrowing, and counted). Uses the
+        live states' keycodes when present, a synthetic sample otherwise.
+        Folds any recovered overflow into ``bucket_overflow_rows``."""
+        self._check_open()
+        if self._mesh_plan is None:
+            raise RuntimeError("validate_mesh_plane requires a mesh session")
+        import numpy as np
+
+        from ..relational.distributed import KEY_LIMIT, exchange_by_key
+
+        keys = []
+        for states in self._engine.state_index.values():
+            for st in states:
+                kc = st.keycode.data
+                if len(kc) and abs(int(np.abs(kc).max())) <= KEY_LIMIT:
+                    keys.append(np.asarray(kc, np.int64))
+        if keys:
+            keys = np.concatenate(keys)[:sample_rows]
+        else:
+            # deterministic synthetic sample (no engine keys in int32 range)
+            keys = (np.arange(sample_rows, dtype=np.int64) * 2654435761) % KEY_LIMIT
+        dest = self._mesh_plan.route(keys)
+        vals = keys.astype(np.float32)[:, None]
+        rec = exchange_by_key(self.mesh, keys, vals, dest=dest)
+        P = self._mesh_plan.n_shards
+        cap = rec["capacity"]
+        got_k = rec["keys"].cpu().numpy().reshape(P, P * cap)
+        got_ok = rec["valid"].cpu().numpy().reshape(P, P * cap)
+        routed_ok = True
+        placed = 0
+        for p in range(P):
+            shard_keys = got_k[p][got_ok[p]]
+            placed += len(shard_keys)
+            want = np.sort(keys[dest == p])
+            if not np.array_equal(np.sort(shard_keys), want):
+                routed_ok = False
+        self._engine.counters["bucket_overflow_rows"] += rec["bucket_overflow_rows"]
+        return {
+            "rows": int(len(keys)),
+            "rows_placed": int(placed),
+            "routing_matches_state_shards": routed_ok,
+            "rows_lost": int(len(keys) - placed),
+            "bucket_overflow_rows": int(rec["bucket_overflow_rows"]),
+            "capacity": int(cap),
+            "attempts": int(rec["attempts"]),
+            "data_shards": P,
+        }
+
     def close(self) -> None:
         """Release everything the session retains, deterministically.
 

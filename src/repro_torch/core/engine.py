@@ -139,6 +139,7 @@ class GraftEngine:
         member_major: bool = True,
         reuse_cache_budget: Optional[int] = None,
         reuse_disk_budget: Optional[int] = None,
+        mesh_plan=None,
         faults: Optional[FaultPlan] = None,
     ):
         self.db = db
@@ -158,6 +159,16 @@ class GraftEngine:
         if not isinstance(partitions, int) or partitions < 1:
             raise ValueError(f"partitions must be a positive int, got {partitions!r}")
         self.n_partitions = partitions
+        # Mesh execution (DESIGN.md §14): a core.meshexec.MeshPlan mapping
+        # the P key-partition shards onto 'data'-axis devices one-to-one.
+        # None = single-host engine (no exchange cost, no device routing).
+        if mesh_plan is not None and mesh_plan.n_shards != partitions:
+            raise ValueError(
+                f"mesh_plan has {mesh_plan.n_shards} data shard(s) but the "
+                f"engine was built with partitions={partitions} — state "
+                "shards and devices must map one-to-one"
+            )
+        self.mesh_plan = mesh_plan
         # Shared-state lifecycle (DESIGN.md §10): 'refcount' drops state at
         # zero refs (paper §6.1); 'epoch' retires it for later grafts under
         # a memory-budgeted evictor.
@@ -955,9 +966,9 @@ class GraftEngine:
         out["retained_states"] = len(self.lifecycle.retired)
         out["retention"] = self.retention
         out["cached_artifacts"] = len(self.reuse.store) if self.reuse is not None else 0
-        # the mesh plane is not ported yet: its gauge stays zero so stats
-        # dicts keep the reference's shape
-        out["mesh_data_shards"] = 0
+        out["mesh_data_shards"] = (
+            self.mesh_plan.n_shards if self.mesh_plan is not None else 0
+        )
         return out
 
 

@@ -919,6 +919,13 @@ class Pipeline:
         bits = bits[keep]
         did = row_ids[keep].astype(np.int64)
 
+        # mesh execution (§14): record the morsel's first-stage repartition
+        # in the per-device histogram — stage-0 keys are identical whether
+        # the chain or the staged loop serves the morsel, so the histogram
+        # is backend-independent
+        if engine.mesh_plan is not None and self.ops and len(did) > 0:
+            engine.mesh_plan.note_morsel(encode_keys(cols, self.ops[0].probe_attrs))
+
         backend = engine.backend
         served = False
         chain_sink = None
@@ -979,6 +986,12 @@ class Pipeline:
                     )
             else:
                 probe_idx, entry_idx = op.state.probe(keycodes)
+            if engine.mesh_plan is not None:
+                # §14: probe rows cross the bucketed all_to_all to their
+                # key shard's device before the shard-local probe
+                xr = engine.mesh_plan.exchange_rows(len(keycodes))
+                cost += cm["exchange"] * xr
+                engine.counters["mesh_exchange_rows"] += xr
             cost += cm["probe"] * len(keycodes) + cm["match"] * len(probe_idx)
             engine.counters["probe_rows"] += len(keycodes)
             bits_in = bits[probe_idx]
@@ -1095,6 +1108,13 @@ class Pipeline:
             # post-visibility match counts iff the staged path would have
             # probed through the single-member fused lens
             matched = int(stats[s, 2] if st["use_post"] else stats[s, 1])
+            if engine.mesh_plan is not None:
+                # mirrors the staged loop's §14 exchange charge (same
+                # summation order — virtual clocks stay bit-identical
+                # whether the chain or the staged loop served the morsel)
+                xr = engine.mesh_plan.exchange_rows(alive)
+                cost += cm["exchange"] * xr
+                engine.counters["mesh_exchange_rows"] += xr
             cost += cm["probe"] * alive + cm["match"] * matched
             engine.counters["probe_rows"] += alive
             if st["use_post"]:
@@ -1290,6 +1310,10 @@ class Pipeline:
         bits = bits[keep]
         did = row_ids[keep].astype(np.int64)
 
+        # §14: same first-stage routing histogram as the fused path
+        if engine.mesh_plan is not None and self.ops and len(did) > 0:
+            engine.mesh_plan.note_morsel(encode_keys(cols, self.ops[0].probe_attrs))
+
         # hash-probe ops (§4.3: one physical probe step serves all queries
         # whose visibility check succeeds)
         backend = engine.backend
@@ -1315,6 +1339,12 @@ class Pipeline:
                     )
             else:
                 probe_idx, entry_idx = op.state.probe(keycodes)
+            if engine.mesh_plan is not None:
+                # §14 exchange charge — identical to the fused path's so
+                # the oracle stays clock-bit-identical under mesh
+                xr = engine.mesh_plan.exchange_rows(len(keycodes))
+                cost += cm["exchange"] * xr
+                engine.counters["mesh_exchange_rows"] += xr
             cost += cm["probe"] * len(keycodes) + cm["match"] * len(probe_idx)
             engine.counters["probe_rows"] += len(keycodes)
             bits_in = bits[probe_idx]
@@ -1413,6 +1443,12 @@ class Pipeline:
                 )
             else:
                 probe_idx, entry_idx = op.state.probe(keycodes)
+            if engine.mesh_plan is not None:
+                # §14 exchange charge — the slow lane's rows route through
+                # the same bucketed all_to_all as the packed path's
+                xr = engine.mesh_plan.exchange_rows(len(keycodes))
+                cost += cm["exchange"] * xr
+                engine.counters["mesh_exchange_rows"] += xr
             cost += cm["probe"] * len(keycodes) + cm["match"] * len(probe_idx)
             engine.counters["probe_rows"] += len(keycodes)
             vis = op.state.visible_mask(m.lens_qid, entry_idx)

@@ -540,9 +540,8 @@ class Runner:
         stall = fp.stall()
         if stall > 0.0:
             wclock.tick(stall)
-        # the mesh plane (and its "exchange" site) is not ported yet: every
-        # shared morsel advance draws the "morsel" site
-        if fp.attempt("morsel", wclock):
+        site = "exchange" if self.engine.mesh_plan is not None else "morsel"
+        if fp.attempt(site, wclock):
             return True
         self._escalate(node, part, on_complete)
         return False
@@ -776,6 +775,21 @@ class Runner:
                         self._force_admit_head(self.clock.now, on_complete)
                         continue
                     break
+                # mesh execution (§14): device affinity — partition p's
+                # state shard is resident on device p % workers, so only
+                # that worker's clock may advance it. The least-advanced
+                # worker defers to the least-advanced OWNER of a ready
+                # shard when it owns none itself (deterministic: owners
+                # sorted, ties resolve to the lowest device id).
+                if engine.mesh_plan is not None and self.workers > 1:
+                    owned = [u for u in units if u[1] % self.workers == wi]
+                    if not owned:
+                        owners = sorted({u[1] % self.workers for u in units})
+                        wi = min(owners, key=lambda i: self.clocks[i].now)
+                        wclock = self.clocks[wi]
+                        self.clock.current = wclock
+                        owned = [u for u in units if u[1] % self.workers == wi]
+                    units = owned
                 # round-robin over ready (scan × partition) units
                 unit = None
                 for cand in units:

@@ -30,7 +30,8 @@ takes the exact arrays the Pallas launch takes:
   including -0.0 == 0.0 and NaN failing every constrained interval.
 
 ``chain_launch`` runs the CUDA kernel for CUDA tensors and ``chain_plain``
-— the same function in plain PyTorch — for CPU tensors. Both return one
+— the same function in plain PyTorch — for CPU tensors; with a data mesh
+it runs once per shard (§14). Both return one
 flat int32 buffer; ``split_outputs`` cuts it into the reference's output
 tuple. The kernel takes its arguments by value: ``chain_args`` lays out
 the int64 block (descriptor, input and output pointers) in host memory,
@@ -442,7 +443,7 @@ def _fc_chain():
     return _build.bind("fused_chain", "fc_chain", 1, 2, 1)
 
 
-def chain_launch(spec, arrays):
+def chain_launch(spec, arrays, mesh=None):
     """Run one fused stage-chain launch.
 
     ``arrays`` follow :func:`input_kinds`'s traversal as contiguous int32
@@ -453,7 +454,66 @@ def chain_launch(spec, arrays):
     ``(alive_in, matched, matched_visible)`` for stage s. A spec whose
     argument block does not fit the kernel's parameter struct raises, on
     either device. On the card the call neither copies nor waits: the C
-    entry zeroes the counters and launches on the current stream."""
+    entry zeroes the counters and launches on the current stream.
+
+    With ``mesh`` set (a data mesh, ``launch.mesh``), the chain runs
+    shard-locally (§14), the counterpart of the reference's
+    ``_chain_fn_sharded``: the row arrays split into d contiguous shards
+    (d must divide the row length and leave each shard >= 8 rows), the
+    kernel launches once per shard on that shard's device with the other
+    inputs copied there, each flat row output comes back as its shards'
+    rows in shard order, and the stats and slot counts are summed over
+    the shards (the reference's ``psum``). A one-shard mesh on the inputs'
+    device is exactly the unsharded launch; a mesh whose shards lie on
+    another kind of device than the inputs raises."""
+    if mesh is None:
+        return _launch(spec, arrays)
+    return _launch_sharded(spec, arrays, mesh)
+
+
+def _launch_sharded(spec, arrays, mesh):
+    from ..launch.mesh import check_shard_devices, shard_devices
+
+    lay = _layout(spec)
+    dev, n = _check_inputs(lay, arrays)
+    check_shard_devices(mesh, dev)
+    devs = shard_devices(mesh)
+    d = len(devs)
+    if n % d or n // d < 8:
+        raise ValueError(
+            f"a {d}-shard mesh needs a row length that it divides into shards of "
+            f">= 8 rows, got {n}"
+        )
+    ns = n // d
+    rows = set(lay.rows)
+    on_dev = {}  # each shard device's copies of the whole-array inputs
+    outs = []
+    for p, sdev in enumerate(devs):
+        full = on_dev.get(sdev)
+        if full is None:
+            full = on_dev[sdev] = [None if i in rows else a.to(sdev) for i, a in enumerate(arrays)]
+        shard = [a[p * ns : (p + 1) * ns].to(sdev) if i in rows else full[i]
+                 for i, a in enumerate(arrays)]
+        outs.append(_launch(spec, shard))
+    if d == 1 and devs[0] == dev:
+        return outs[0]
+    parts = [split_outputs(spec, ns, o.to(dev)) for o in outs]
+    counts = (2 + len(spec[0]), 3 + len(spec[0]))  # stats, slots
+    pieces = []
+    for j in range(len(parts[0])):
+        if j in counts:
+            total = parts[0][j].reshape(-1)
+            for part in parts[1:]:
+                total = total + part[j].reshape(-1)
+            pieces.append(total)
+        else:
+            pieces.append(torch.cat([part[j] for part in parts]))
+    return torch.cat(pieces)
+
+
+def _launch(spec, arrays):
+    """One launch on the inputs' device: the kernel on the card, the plain
+    version on the CPU."""
     lay = _layout(spec)
     dev, n = _check_inputs(lay, arrays)
     if dev.type == "cpu":

@@ -827,3 +827,90 @@ def test_cuda_batch_planning_twin(cuda, workers, template):
         assert launches.get("hash_probe_lens64", 0) + launches.get("hash_probe_lens_multi64", 0) > 0
     for s in (s_gpu, s_cpu):
         s.close()
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_cuda_sharded_chain_matches_unsharded(cuda, d):
+    """The shard-local chain on a d-shard mesh of the card: one launch of
+    B1 per shard, bit-identical to the unsharded launch and to the plain
+    version on the CPU."""
+    from repro_torch.launch.db_plane import _chain_parity
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh(d)
+    spec, arrays = _chain_inputs(7, n=4096, n_e=500)
+    want = fused_chain.chain_plain(spec, [_t(a) for a in arrays])
+    _build.reset_launch_counts()
+    got = fused_chain.chain_launch(spec, [_t(a, cuda) for a in arrays], mesh=mesh)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("fused_chain", 0) == d
+    assert torch.equal(got.cpu(), want)
+    block = _chain_parity(mesh, rows=65_536)
+    assert block["parity"] and block["matched_rows"] > 0
+    assert block["shard_launches"] == d
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_cuda_exchange_matches_cpu(cuda, d):
+    """The bucketed exchange (grown from capacity 4) and the partitioned
+    join on the card equal the same calls on CPU shards, bit for bit."""
+    from repro_torch.core.hashindex import key_partition
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.relational import distributed as dist
+
+    rng = np.random.default_rng(d)
+    keys = rng.choice(1 << 24, 10_001, replace=False).astype(np.int64)
+    vals = np.stack([keys, keys % 97], -1).astype(np.float32)
+    recs = [dist.exchange_by_key(make_data_mesh(d, dev), keys, vals,
+                                 dest=key_partition(keys, d), capacity=4)
+            for dev in ("cuda", "cpu")]
+    for k in ("capacity", "attempts", "bucket_overflow_rows"):
+        assert recs[0][k] == recs[1][k], k
+    assert recs[0]["attempts"] > 1
+    for k in ("keys", "values", "valid"):
+        assert recs[0][k].is_cuda and torch.equal(recs[0][k].cpu(), recs[1][k]), k
+    bk, pk = keys[:5000], np.concatenate([keys[:2500], keys[5000:7500]])
+    bv, pv = vals[:5000, :1], vals[:5000]
+    joined = []
+    for dev in ("cuda", "cpu"):
+        join = dist.make_partitioned_join(make_data_mesh(d, dev), 1, 2, capacity=16384 // d)
+        joined.append(join(*dist.pad_partition(bk, bv, d)[:2], *dist.pad_partition(pk, pv, d)[:2]))
+    for a, b in zip(*joined):
+        assert torch.equal(a.cpu(), b)
+    assert int(joined[0][1].sum()) == 2500 and int(joined[0][3]) == 0
+
+
+def test_cuda_mesh_session_twin(cuda):
+    """A mesh=2 session at SF 0.01 (two shards on the card, or on two
+    cards): the card and the CPU give identical results, counters,
+    ``mesh_stats()`` (the shards' device names aside), backend stats and
+    clocks; the exchange of ``validate_mesh_plane`` places every row."""
+    import graftdb_torch
+    from repro_torch.relational import queries
+
+    db = _small_db()
+    rng = np.random.default_rng(123)
+    qs = [queries.sample_query(db, rng, arrival=i * 0.001) for i in range(6)]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        session = graftdb_torch.connect(db, graftdb_torch.EngineConfig(
+            mode="graft", morsel_size=4096, device=dev, mesh=2))
+        futs = session.submit_all([
+            dataclasses.replace(queries.make_query(db, q.template, q.params, arrival=q.arrival),
+                                qid=40_000 + i) for i, q in enumerate(qs)])
+        session.run()
+        stats = session.mesh_stats()
+        devices = stats.pop("devices")
+        assert len(devices) == 2 and all(x.startswith(dev) for x in devices)
+        runs.append((session, futs, stats, session.validate_mesh_plane(4096)))
+    (s_gpu, f_gpu, m_gpu, v_gpu), (s_cpu, f_cpu, m_cpu, v_cpu) = runs
+    for a, b in zip(f_gpu, f_cpu):
+        for k, v in a.result().items():
+            np.testing.assert_array_equal(v, b.result()[k])
+    assert dict(s_gpu.counters) == dict(s_cpu.counters)
+    assert m_gpu == m_cpu and m_gpu["mesh_exchange_rows"] > 0
+    assert v_gpu == v_cpu and v_gpu["rows_lost"] == 0
+    assert s_gpu.backend.stats() == s_cpu.backend.stats()
+    assert s_gpu.now == s_cpu.now
+    for s in (s_gpu, s_cpu):
+        s.close()

@@ -117,8 +117,8 @@ def test_chain_args_hold_the_largest_engine_spec(tdb, monkeypatch):
     seen = []
     orig = backends.chain_launch
 
-    def spy(spec, arrays):
-        flat = orig(spec, arrays)
+    def spy(spec, arrays, **kw):
+        flat = orig(spec, arrays, **kw)
         seen.append((len(fused_chain.chain_args(spec, arrays, flat)), spec, list(arrays), flat))
         return flat
 

@@ -197,17 +197,6 @@ def test_config_defaults_to_the_card():
     assert cfg.morsel_size == 65536
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(mesh="smoke"),
-    ],
-)
-def test_unported_planes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        graftdb_torch.EngineConfig(**kw)
-
-
 @pytest.mark.parametrize("flag", ["use_agg_kernel", "use_insert_kernel"])
 def test_kernel_flags_are_accepted(tdb, flag):
     """The reference's opt-in kernel flags: a session runs with each and
@@ -266,6 +255,9 @@ from repro_torch.api import serving
 from repro_torch.serve import folding
 from repro_torch.kernels import flash_attention, linrec, ops, ref, seg_aggregate
 from repro_torch.relational import queries, refexec, tpch
+from repro_torch.core import meshexec
+from repro_torch.launch import db_plane, mesh
+from repro_torch.relational import distributed
 
 db = tpch.get_database(0.002, seed=7)
 session = graftdb_torch.connect(db, EngineConfig(mode="graft", device="cpu", morsel_size=2048))
@@ -313,6 +305,22 @@ a = rng.uniform(0.7, 0.999, size=(1, 256, 128)).astype(np.float32)
 h = ops.linear_recurrence(a, a, device="cpu")
 torch.testing.assert_close(h, ref.linrec_ref(torch.from_numpy(a), torch.from_numpy(a)),
                            rtol=1e-4, atol=1e-4)
+meshed = graftdb_torch.connect(db, EngineConfig(
+    mode="graft", device="cpu", morsel_size=2048, mesh=2,
+))
+futs = meshed.submit_all([queries.make_query(db, "q3", {"segment": 1.0, "date": d}, arrival=0.0)
+                          for d in (740.0, 760.0)])
+meshed.run()
+assert meshed.mesh_stats()["mesh_exchange_rows"] > 0
+assert meshed.validate_mesh_plane(256)["rows_lost"] == 0
+assert isinstance(meshed._mesh_plan, meshexec.MeshPlan)
+for f in futs:
+    want = refexec.execute(db, f.query.plan)
+    for k, v in f.result().items():
+        np.testing.assert_allclose(np.asarray(v, float), np.asarray(want[k], float), rtol=1e-9)
+db_plane.validate_db_plane_record(
+    db_plane.db_plane_record(mesh.make_data_mesh(2, "cpu"), rows=1 << 10, chain_rows=256))
+assert distributed.exchange_by_key(mesh.make_smoke_mesh("cpu"), np.arange(5), np.ones(5))["attempts"] == 1
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")

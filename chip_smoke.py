@@ -151,12 +151,34 @@ itself and drives ``graftdb_torch``. Phases:
    of the grid, threads of a block, and the blocks an SM holds at once)
    and, from a profiler trace after the phase's event means, the kernels
    one call launches: it fails unless that is one;
+6b. LM serving path: stablelm-3b at its published width and depth (2.8 B
+   parameters, float32, drawn on the card from ``SEED``) through
+   ``repro_torch.launch.serve.serve_fold`` on the reference serve
+   driver's defaults (8 requests, a shared 48-token prefix, 8-token
+   suffixes, 8 decoded tokens; tokens from ``default_rng(0)``): isolated
+   and folded outputs must be identical and prefill 448 against 112
+   tokens; each leg records its wall seconds, decode steps, the median
+   CUDA-event ms of a step (``StepTimer``), steps and output tokens per
+   second and the peak memory. Then, on one 56-token prompt, decode
+   through the cache, the full forward and prefill over the served
+   model's first k layers (k = 1, 2, 4, ..., 32): at k = 1 they must
+   agree within 1e-4 of max |logit| (prefill's K/V with the decode
+   cache's too); deeper ones are recorded, since the reference's init
+   makes any two float32 orders part with depth. Then each other family at
+   its published widths with its depth cut (``LM_CUTS``), its constant
+   leaves drawn at random: card against the CPU on the final hidden
+   states and the last 8 positions' logits, the MoE layer's experts equal
+   on both devices, and decode as ``LM_CUTS`` says. Float32 products must
+   not run in TF32. Launch counts are reset before the phase and read
+   after it: no kernel of the port may launch. Results go to ``lm`` in
+   ``chip_smoke.json``;
 7. the device time per call of the fused chain (its replay and phase 3's
    two-stage chain with grants, filters and a sink), of the probes B2, B4
    and B3 (their replays), of B5 at 65,536 keys, of the four probes at one
    key and of the recurrence at ``[2, 4096, 4096]``, by kernel, memset and
    copy; the mesh plane's exchange at each d, join and aggregate, as the
-   sum of their kernels; the segmented sum's phase-3 calls and its main-path
+   sum of their kernels; the served model's decode step (its kernels and
+   their device time, the card's busy share in a step); the segmented sum's phase-3 calls and its main-path
    replay: the two passes by device time; all from ``torch.profiler``
    traces, last, since a trace leaves every later launch slower on the
    host; then the segmented sum's event mean again after the traces. The
@@ -296,6 +318,58 @@ TRACED_SF = ("fused_chain_rich", "hash_probe_lens_multi")
 
 #: the first query id of a twin's runs (both devices number alike)
 TWIN_QID_BASE = 1_000_000
+
+#: phase 6b, the LM serving path: the served model (full width and depth,
+#: float32) and the reference serve driver's defaults (requests, shared
+#: prefix, suffix and decoded tokens a request)
+LM_ARCH = "stablelm-3b"
+LM_DEVICE = "cuda"
+LM_REQUESTS, LM_PREFIX, LM_SUFFIX, LM_DECODE = 8, 48, 8, 8
+#: the limit of every comparison of the phase, as a share of the largest
+#: |reference| value: the paths sum in other orders in float32, and
+#: TF32's 10-bit mantissa would move them by far more
+LM_TOL = 1e-4
+#: the served model's depths (its first k layers, and all of them) over
+#: which decode, the full forward and prefill are compared; those up to
+#: LM_HELD_DEPTH are held to LM_TOL
+LM_DEPTHS = (1, 2, 4, 8, 16, 32)
+LM_HELD_DEPTH = 1
+#: each other family at its published widths, its depth cut (config
+#: updates, what was cut), how its decode through the cache is held, and
+#: the limit of its card-against-CPU comparisons. Decode: "forward",
+#: against the forward's logits on the card; "cpu", against the same
+#: decode on the CPU; None, forward only (pixtral-12b and dbrx-132b, which
+#: the reference's decode test leaves out). rwkv6-7b's chunked forward
+#: rounds its time-mix products' inputs to bf16 and its decode does not,
+#: so the two differ by far more than 1e-4, in the reference too
+#: (``tests/test_torch_models.py``); inputs that differ in their last
+#: float32 bit round apart, so its forward on the card and the CPU is
+#: held below that rounding's own effect in this run ("rounding": its
+#: decode-against-forward gap). The reference's init scales q and k by 1/sqrt(heads),
+#: not 1/sqrt(d_model), so their scores grow with d_model / heads (160 at
+#: pixtral-12b's widths), and a score's absolute float32 rounding is a
+#: softmax weight's relative error: at 1 layer pixtral-12b's card and CPU
+#: differ by 2.4e-4 (NVIDIA H100 80GB HBM3 against its host's CPU), so it
+#: is held to 1e-3. The depths are those at which two float32 orders
+#: still agree (on that card, at 2 layers pixtral-12b differed by 3.8e-3
+#: and seamless-m4t-large-v2 at 2 + 2 by 4.1e-3; the served model's depth
+#: sweep shows the growth). LM_CUT_TOKENS text tokens; the logits of the
+#: last LM_LAST positions compared
+LM_CUTS = (
+    ("recurrentgemma-9b", dict(n_layers=3), "1 period (rec, rec, attn) of 38 layers", "forward",
+     LM_TOL),
+    ("rwkv6-7b", dict(n_layers=2), "2 of 32 layers", "cpu", "rounding"),
+    ("seamless-m4t-large-v2", dict(n_layers=1, n_encoder_layers=1),
+     "1 of 24 encoder and 1 of 24 decoder layers", "forward", LM_TOL),
+    ("pixtral-12b", dict(n_layers=1), "1 of 40 layers (with its 1,024 prefix embeds)", None,
+     1e-3),
+    ("dbrx-132b", dict(n_layers=1), "1 of 40 layers (16 experts, top-4)", None, LM_TOL),
+)
+LM_CUT_TOKENS = 32
+LM_LAST = 8
+#: the served model's decode step whose device time the last phase reads
+#: from a profiler trace (``trace_lm``): its record and the call
+LM_TRACES = []
 
 
 def log(*a):
@@ -2506,6 +2580,370 @@ def kernel_ops(report):
     return rows
 
 
+class StepTimer:
+    """Wraps ``repro_torch.models.model.decode_step`` (which the serve
+    driver calls through the module) with a pair of CUDA events a call, to
+    time each step on the card without a synchronize of its own."""
+
+    def __init__(self):
+        from repro_torch.models import model
+
+        self.mod, self.orig, self.events = model, model.decode_step, []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = self.orig(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self.mod.decode_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_step = self.orig
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, both on the host as float32."""
+    import torch
+
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"shape {tuple(g.shape)} against {tuple(w.shape)}, or not finite")
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def lm_check(out, label, err, held=True, limit=LM_TOL):
+    """Logs ``err`` (a share of the largest |reference| value); where it is
+    held and not below ``limit``, records the failure in ``out`` for the
+    phase to raise at its end, after every number is recorded."""
+    bad = held and not err < limit
+    log(f"  {label}: {err:.3g} of max |ref|" + (f" (limit {limit:.3g})" if held else " (recorded)")
+        + (" FAILED" if bad else ""))
+    if bad:
+        out.setdefault("failed", []).append(f"{label}: {err}")
+    return err
+
+
+def lm_serve(out):
+    """Phase 6b, 1-2: the served model through ``serve_fold`` on the card,
+    then its decode-through-cache, full-forward and prefill logits on one
+    prompt. Leaves the model's decode step, on a cache, in ``LM_TRACES``
+    for the last phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=LM_DEVICE).manual_seed(SEED), device=LM_DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, LM_PREFIX)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, LM_SUFFIX)])
+               for _ in range(LM_REQUESTS)]
+    with StepTimer() as timer:
+        res = serve.serve_fold(cfg, params, shared, prompts, LM_DECODE, device=LM_DEVICE)
+    step_ms = timer.ms()
+    peak = torch.cuda.max_memory_allocated()
+    iso, fold = res["isolated"], res["folded"]
+    if len(step_ms) != iso["decode_steps"] + fold["decode_steps"]:
+        raise AssertionError(f"lm: {len(step_ms)} timed steps, legs report "
+                             f"{iso['decode_steps']} + {fold['decode_steps']}")
+    legs = {}
+    for label, leg, ms in (("isolated", iso, step_ms[: iso["decode_steps"]]),
+                           ("folded", fold, step_ms[iso["decode_steps"]:])):
+        legs[label] = {
+            "wall_s": leg["seconds"], "prefill_tokens": leg["prefill_tokens"],
+            "decode_steps": leg["decode_steps"], "step_ms_median": float(np.median(ms)),
+            "step_ms_p90": float(np.percentile(ms, 90)),
+            "steps_per_s": leg["decode_steps"] / leg["seconds"],
+            "output_tokens_per_s": LM_REQUESTS * LM_DECODE / leg["seconds"],
+            "outputs": leg["outputs"],
+        }
+        log(f"lm serve {label}: {leg['prefill_tokens']} prefill tokens, {leg['decode_steps']} "
+            f"decode steps in {leg['seconds']:.3f} s; step median "
+            f"{legs[label]['step_ms_median']:.3f} ms (CUDA events), "
+            f"{legs[label]['steps_per_s']:.1f} steps/s")
+    out["serve"] = {"arch": LM_ARCH, "params": n_params, "param_bytes": 4 * n_params,
+                    "init_s": init_s, "identical": res["identical"], "legs": legs,
+                    "max_memory_allocated": peak, "card": card_smi()}
+    log(f"lm serve {LM_ARCH} ({n_params} params, float32): outputs identical "
+        f"{res['identical']}; peak {peak / 1e9:.3f} GB allocated")
+    if not res["identical"]:
+        raise AssertionError("lm: isolated and folded outputs differ")
+    want = (LM_REQUESTS * (LM_PREFIX + LM_SUFFIX), LM_PREFIX + LM_REQUESTS * LM_SUFFIX)
+    if (iso["prefill_tokens"], fold["prefill_tokens"]) != want:
+        raise AssertionError(f"lm: prefill tokens {iso['prefill_tokens']} / "
+                             f"{fold['prefill_tokens']}, expected {want}")
+
+    # 2. decode through the cache, the full forward and prefill, one prompt,
+    # over the served model's first k layers for each k of LM_DEPTHS
+    n = LM_PREFIX + LM_SUFFIX
+    tokens = torch.from_numpy(prompts[0]).to(LM_DEVICE)[None]
+    out["consistency"] = {"prompt_tokens": n, "held_depths": [k for k in LM_DEPTHS
+                                                              if k <= LM_HELD_DEPTH]}
+    for k in sorted({k for k in LM_DEPTHS if k < cfg.n_layers} | {cfg.n_layers}):
+        sub_cfg, sub = depth_cut(cfg, params, k)
+        dec, fwd, pre_logits, pre_cache, cache = three_paths(sub_cfg, sub, tokens)
+        full_cache = cache if k == cfg.n_layers else None
+        held = k <= LM_HELD_DEPTH
+        out["consistency"][f"depth_{k}"] = {
+            "decode_vs_forward": lm_check(out, f"depth {k}: decode vs forward logits",
+                                          rel_err(dec, fwd), held),
+            "prefill_vs_forward": lm_check(out, f"depth {k}: prefill vs forward last logits",
+                                           rel_err(pre_logits[0], fwd[-1]), held),
+            "prefill_kv_vs_decode_cache": lm_check(out, f"depth {k}: prefill K/V vs decode cache",
+                                                   max(rel_err(pre_cache[0]["attn0"][kv],
+                                                               cache[0]["attn0"][kv][:, :, :n])
+                                                       for kv in ("k", "v")), held),
+        }
+    # where the parting comes from: the full depth again, with the attention
+    # weights scaled by their contracted width (recorded)
+    dec, fwd, *_ = three_paths(cfg, attention_rescaled(cfg, params), tokens)
+    out["consistency"]["attention_rescaled_full_depth"] = lm_check(
+        out, f"depth {cfg.n_layers}, attention weights scaled by their contracted width: decode "
+        f"vs forward logits", rel_err(dec, fwd), held=False)
+    del dec, fwd
+
+    def step():  # the full model's next step, on its cache
+        with torch.inference_mode():
+            M.decode_step(cfg, params, full_cache, tokens[:, :1], n)
+
+    LM_TRACES.append((out["serve"], step))
+
+
+def three_paths(cfg, params, tokens):
+    """Decode through a cache, the full forward and prefill of one prompt
+    ``tokens`` [1, n]: (decode logits [n, V], forward logits [n, V],
+    prefill's last logits, prefill's caches, the decode cache)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    n = tokens.shape[1]
+    with torch.inference_mode():
+        W = M.lm_head_weight(cfg, params)
+        fwd = torch.einsum("sd,dv->sv", M.forward_train(cfg, params, {"tokens": tokens})[0], W)
+        pre_logits, pre_cache = M.prefill(cfg, params, {"tokens": tokens})
+        cache = M.init_cache(cfg, 1, 256, dtype=torch.float32, device=LM_DEVICE)
+        dec = torch.cat([M.decode_step(cfg, params, cache, tokens[:, t : t + 1], t)[0][0]
+                         for t in range(n)])
+    return dec, fwd, pre_logits, pre_cache, cache
+
+
+def attention_rescaled(cfg, params):
+    """``params`` with each attention weight drawn anew at the scale of its
+    contracted width (1/sqrt(d_model) for wq, wk, wv; 1/sqrt(heads *
+    d_head) for wo) in place of the reference init's (1/sqrt(heads),
+    1/sqrt(kv heads), 1/sqrt(d_head)): the same values rescaled."""
+    import math
+
+    D, H, KV, dh = cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads, cfg.d_head
+    scale = {"wq": math.sqrt(H / D), "wk": math.sqrt(KV / D), "wv": math.sqrt(KV / D),
+             "wo": math.sqrt(1 / H)}
+    (group,) = params["groups"]
+    blk = group["attn0"]
+    return dict(params, groups=[{"attn0": dict(blk, **{w: blk[w] * a for w, a in scale.items()})}])
+
+
+def depth_cut(cfg, params, k):
+    """The config and parameters (views) of a one-group model's first ``k``
+    layers."""
+    import dataclasses
+
+    (group,) = params["groups"]
+    sub = dict(params, groups=[{name: {leaf: t[:k] for leaf, t in blk.items()}
+                                for name, blk in group.items()}])
+    return dataclasses.replace(cfg, n_layers=k), sub
+
+
+def leaves(tree):
+    """The tensors of a tree of dicts and lists."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in leaves(v)]
+
+
+def spread_constants(tree, gen, name=""):
+    """``tree`` with its constant-initialised leaves (norm weights and
+    biases, the RWKV decay base, token-shift mixes, the conv bias) drawn
+    at random from ``gen``, as the CPU parity tests draw them: at their
+    initial values the RWKV head norm's zero weight zeroes the whole
+    time-mix, and every norm is the same."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: spread_constants(v, gen, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [spread_constants(v, gen) for v in tree]
+
+    def normal(scale, mean=0.0):
+        return mean + scale * torch.randn(tree.shape, generator=gen, device=tree.device)
+
+    if name == "ln_w":
+        return normal(0.1, 1.0)
+    if name.startswith(("ln", "final_norm", "enc_final_norm", "conv_b")):
+        return normal(0.1)
+    if name == "w_dec0":
+        return normal(0.5)
+    if name.startswith("mu"):
+        return torch.rand(tree.shape, generator=gen, device=tree.device)
+    return tree
+
+
+def lm_cut(out, arch, updates, cut, decode, limit):
+    """Phase 6b, 3: one family at its published widths with its depth cut:
+    card against the CPU, and decode as ``decode`` says (LM_CUTS)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, moe
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **updates)
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(SEED)
+    gpu = spread_constants(M.init_params(cfg, gen, device=LM_DEVICE), gen)
+    cpu = M.tree_map(lambda t: t.cpu(), gpu, torch.is_tensor)
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_CUT_TOKENS)))}
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = torch.from_numpy(
+            (rng.normal(size=(1, cfg.n_prefix_embeds, cfg.d_model)) * 0.1).astype(np.float32))
+    if cfg.n_encoder_layers:
+        batch["src_embeds"] = torch.from_numpy(
+            (rng.normal(size=(1, LM_CUT_TOKENS // 4, cfg.d_model)) * 0.1).astype(np.float32))
+    rec = {"cut": cut, "params": sum(t.numel() for t in leaves(gpu)), "tokens": LM_CUT_TOKENS}
+    log(f"lm {arch}: {cut}, {rec['params']} params")
+
+    def run(params, dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            hidden = M.forward_train(cfg, params, b)
+            W = M.lm_head_weight(cfg, params)
+            res = {"hidden": hidden, "logits": torch.einsum("sd,dv->sv", hidden[0, -LM_LAST:], W)}
+            if cfg.moe is not None:
+                p = M._rep(params["groups"][0], 0)["attn0"]
+                x = M.embed_tokens(cfg, params, b["tokens"])
+                h = x + layers.attention(p, layers.rms_norm(p["ln1"], x), cfg,
+                                         window=cfg.attn_window)
+                res["experts"] = moe.route(p, layers.rms_norm(p["ln2"], h), cfg)[1].cpu()
+            if decode == "forward" and dev == LM_DEVICE or decode == "cpu":
+                res["all_logits"] = torch.einsum("sd,dv->sv", hidden[0], W)
+                cache = M.init_cache(cfg, 1, LM_CUT_TOKENS, dtype=torch.float32, device=dev)
+                if cfg.n_encoder_layers:
+                    memory = M.encode(cfg, params, b["src_embeds"])
+                    for gp, gc in zip(params["groups"], cache):
+                        for ck, w in (("ck", "cwk"), ("cv", "cwv")):
+                            gc["attn0"][ck].copy_(torch.einsum("bsd,ndgk->nbsgk", memory,
+                                                               gp["attn0"][w]))
+                res["decode"] = torch.cat([
+                    M.decode_step(cfg, params, cache, b["tokens"][:, t : t + 1], t)[0][0]
+                    for t in range(LM_CUT_TOKENS)])
+        return res
+
+    t1 = time.perf_counter()
+    g = run(gpu, LM_DEVICE)
+    torch.cuda.synchronize()
+    rec["card_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    c = run(cpu, "cpu")
+    rec["cpu_s"] = time.perf_counter() - t1
+    if decode:
+        rec["decode_vs_forward"] = lm_check(out, f"{arch} decode vs forward logits on the card",
+                                            rel_err(g["decode"], g["all_logits"]),
+                                            held=decode == "forward")
+    if decode == "cpu":
+        rec["decode_card_vs_cpu"] = lm_check(out, f"{arch} decode logits, card vs CPU",
+                                             rel_err(g["decode"], c["decode"]))
+    if limit == "rounding":  # below the bf16 rounding's own effect, this run's
+        limit = rec["decode_vs_forward"]
+    rec["limit_card_vs_cpu"] = limit
+    rec["hidden_card_vs_cpu"] = lm_check(out, f"{arch} hidden, card vs CPU",
+                                         rel_err(g["hidden"], c["hidden"]), limit=limit)
+    rec["logits_card_vs_cpu"] = lm_check(out, f"{arch} last {LM_LAST} logits, card vs CPU",
+                                         rel_err(g["logits"], c["logits"]), limit=limit)
+    if "experts" in g:
+        rec["experts_equal"] = bool(torch.equal(g["experts"], c["experts"]))
+        log(f"  {arch} MoE layer's experts equal on both devices: {rec['experts_equal']}")
+        if not rec["experts_equal"]:
+            out.setdefault("failed", []).append(f"{arch}: the MoE layer chose other experts")
+    del gpu, cpu, g, c
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def lm_phase(report):
+    """Phase 6b: the LM serving path on the card. Launch counts are reset
+    before it and read after it: no kernel of the port may launch."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("lm: float32 products must not run in TF32")
+    t0 = time.perf_counter()
+    out = report["lm"] = {}
+    _build.reset_launch_counts()
+    lm_serve(out)
+    out["cuts"] = {arch: lm_cut(out, arch, *rest) for arch, *rest in LM_CUTS}
+    launches = _build.launch_counts()
+    report["launches"]["lm"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launches on the LM serving path: {launches}; phase {out['seconds']:.1f} s")
+    if any(launches.values()):
+        raise AssertionError(f"lm: kernels launched on the LM serving path: {launches}")
+    if out.get("failed"):
+        raise AssertionError(f"lm: {out['failed']}")
+
+
+def trace_lm(report, iters=5):
+    """Last phase: the served model's decode step (one token at the
+    consistency check's next position) from a profiler trace: its CUDA
+    kernels a step and their device time, beside the step's CUDA-event
+    median; the ratio is the card's busy share in a step."""
+    import torch
+
+    for rec, call in LM_TRACES:
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        rec["step_device_ms"] = sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+        rec["step_kernels"] = len(kernels) / iters
+        for leg in rec["legs"].values():
+            leg["busy_share"] = rec["step_device_ms"] / leg["step_ms_median"]
+        log(f"lm decode step: {rec['step_kernels']:.0f} kernels, {rec['step_device_ms']:.4f} ms "
+            f"on the device; busy share "
+            f"{ {k: round(v['busy_share'], 4) for k, v in rec['legs'].items()} }")
+
+
 def card_smi():
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     return subprocess.run(
@@ -2534,9 +2972,11 @@ def main():
 
     rows = smoke(report)
     rows += kernel_ops(report)
+    lm_phase(report)
     trace_launch_path(report)
     trace_mesh(report)
     trace_seg_passes(report)
+    trace_lm(report)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

@@ -1,2 +1,3 @@
-"""Launch tooling of the port: the data-axis mesh (``mesh``) and the
-device data plane's validated record (``db_plane``)."""
+"""Launch tooling of the port: the data-axis mesh (``mesh``), the
+device data plane's validated record (``db_plane``) and the real-model
+serve driver (``serve``)."""

@@ -914,3 +914,97 @@ def test_cuda_mesh_session_twin(cuda):
     assert s_gpu.now == s_cpu.now
     for s in (s_gpu, s_cpu):
         s.close()
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: the kernel-ops kernels against the model layers, and
+# the model zoo on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_linrec_matches_port_rglru_layer(cuda):
+    """B8's kernel on the port's RG-LRU gates gives the layer's output (the
+    reference's ``test_linrec_matches_rglru_semantics`` limits)."""
+    from _torch_lm import rglru_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.models.recurrent import _rg_lru_gates, rg_lru
+
+    p, x = rglru_inputs(cuda)
+    a, b = _rg_lru_gates(p, x)
+    before = _build.launch_counts().get("linrec", 0)
+    got = ops.linear_recurrence(a, b, device="cuda")
+    assert _build.launch_counts()["linrec"] == before + 1
+    torch.testing.assert_close(got, rg_lru(p, x), rtol=2e-4, atol=2e-4)
+
+
+def test_cuda_attention_matches_port_attention_layer(cuda):
+    """B9's float32 kernel on one head group of recurrentgemma-9b at its
+    window (2,048 of 4,096 positions) gives the port's
+    ``layers.attention``, within the kernel-ops phase's float32 limits."""
+    from _torch_lm import head_group
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    cfg, p, x, q, k, v = head_group(4096, cuda)
+    assert cfg.attn_window == 2048
+    want = layers.attention(p, x, cfg, window=cfg.attn_window)[0]
+    before = _build.launch_counts().get("flash_attention", 0)
+    got = ops.attention(q, k, v, window=cfg.attn_window, device="cuda")
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got.transpose(0, 1).reshape(want.shape), want,
+                               rtol=1e-5, atol=1e-4)
+
+
+#: the archs whose decode the reference's parity test holds against forward
+DECODE_ARCHS = ("h2o-danube-3-4b", "rwkv6-7b", "recurrentgemma-9b", "chatglm3-6b",
+                "stablelm-3b", "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "llama4-maverick-400b-a17b",
+                                  "dbrx-132b", "h2o-danube-3-4b", "stablelm-3b",
+                                  "starcoder2-7b", "chatglm3-6b", "rwkv6-7b", "pixtral-12b",
+                                  "seamless-m4t-large-v2"])
+def test_cuda_model_matches_cpu(cuda, arch):
+    """Each arch's reduced config on the card against the CPU, with the
+    same parameters: the final hidden states, and (for the archs of the
+    reference's decode parity test) 16 decode steps' logits, within 1e-4
+    of the largest |CPU| value."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+
+    cfg = smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))}
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32) * 0.1)
+    if cfg.n_encoder_layers:
+        batch["src_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32) * 0.1)
+
+    def on(dev):
+        p = M.tree_map(lambda t: t.to(dev), params, lambda x: isinstance(x, torch.Tensor))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        hidden = M.forward_train(cfg, p, b)
+        if arch not in DECODE_ARCHS:
+            return hidden, None
+        cache = M.init_cache(cfg, 2, 16, dtype=torch.float32, device=dev)
+        if cfg.n_encoder_layers:
+            memory = M.encode(cfg, p, b["src_embeds"])
+            for gp, gc in zip(p["groups"], cache):
+                gc["attn0"]["ck"].copy_(torch.einsum("bsd,ndgk->nbsgk", memory,
+                                                     gp["attn0"]["cwk"]))
+                gc["attn0"]["cv"].copy_(torch.einsum("bsd,ndgk->nbsgk", memory,
+                                                     gp["attn0"]["cwv"]))
+        logits = [M.decode_step(cfg, p, cache, b["tokens"][:, t : t + 1], t)[0]
+                  for t in range(16)]
+        return hidden, torch.cat(logits, dim=1)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    (h_gpu, l_gpu), (h_cpu, l_cpu) = on(cuda), on("cpu")
+    for got, want in ((h_gpu, h_cpu), (l_gpu, l_cpu)):
+        if want is None:
+            continue
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err < 1e-4, f"{arch}: card against CPU {err:.3g} of max |CPU|"

@@ -11,8 +11,11 @@ in float32 attention, the recurrence rtol/atol 1e-4, the RG-LRU layer
 2e-4. In bf16 attention the reference's atol of 0.2 would pass an output
 that left out a 64-key tile, so there each element must lie within
 2e-2 |want| + 0.1 rms(want's row), the row being one query's output
-vector, as ``chip_smoke.py`` holds the kernel on the card. The CUDA
-kernels themselves are held against these plain versions in
+vector, as ``chip_smoke.py`` holds the kernel on the card. Both plain
+versions are also held against the port's own model layers (``rg_lru``
+and ``layers.attention``, which the LM path runs instead of the kernels,
+as the reference's does). The CUDA kernels themselves are held against
+these plain versions, and against those layers, in
 ``test_torch_cuda.py``.
 """
 
@@ -23,7 +26,9 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
+from _torch_lm import head_group, rglru_inputs
 from repro_torch.kernels import flash_attention, linrec, ops, ref
+from repro_torch.models import layers
 
 torch.set_num_threads(2)
 
@@ -129,6 +134,29 @@ def test_linear_recurrence_matches_rglru_layer():
     got = ops.linear_recurrence(np.asarray(a), np.asarray(b), device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(rg_lru(p, x), np.float32),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_linear_recurrence_matches_port_rglru_layer():
+    """The port's own RG-LRU layer: its gates through the recurrence's
+    plain version give the layer's output (the reference's
+    ``test_linrec_matches_rglru_semantics`` shapes and limits)."""
+    from repro_torch.models.recurrent import _rg_lru_gates, rg_lru
+
+    p, x = rglru_inputs("cpu")
+    a, b = _rg_lru_gates(p, x)
+    got = ops.linear_recurrence(a, b, device="cpu")
+    torch.testing.assert_close(got, rg_lru(p, x), rtol=2e-4, atol=2e-4)
+
+
+def test_attention_matches_port_attention_layer():
+    """One head group of recurrentgemma-9b through the attention's plain
+    version gives the port's ``layers.attention`` (float32 limits), at a
+    window the sequence exceeds (the card test runs the model's 2,048)."""
+    cfg, p, x, q, k, v = head_group(256, "cpu")
+    want = layers.attention(p, x, cfg, window=64)[0]
+    got = ops.attention(q, k, v, window=64, device="cpu")
+    torch.testing.assert_close(got.transpose(0, 1).reshape(want.shape), want,
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_linear_recurrence_casts_inputs_to_float32():

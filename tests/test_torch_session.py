@@ -258,6 +258,10 @@ from repro_torch.relational import queries, refexec, tpch
 from repro_torch.core import meshexec
 from repro_torch.launch import db_plane, mesh
 from repro_torch.relational import distributed
+from repro_torch import configs
+from repro_torch.models import layers as lm_layers, model as lm_model, moe as lm_moe
+from repro_torch.models import recurrent as lm_recurrent, shardctx as lm_shardctx
+from repro_torch.launch import serve as lm_serve
 
 db = tpch.get_database(0.002, seed=7)
 session = graftdb_torch.connect(db, EngineConfig(mode="graft", device="cpu", morsel_size=2048))
@@ -321,6 +325,17 @@ for f in futs:
 db_plane.validate_db_plane_record(
     db_plane.db_plane_record(mesh.make_data_mesh(2, "cpu"), rows=1 << 10, chain_rows=256))
 assert distributed.exchange_by_key(mesh.make_smoke_mesh("cpu"), np.arange(5), np.ones(5))["attempts"] == 1
+lm_cfg = configs.smoke_config("recurrentgemma-9b")
+lm_params = lm_model.init_params(lm_cfg, torch.Generator().manual_seed(0), device="cpu")
+lm_logits, _ = lm_model.prefill(lm_cfg, lm_params, {"tokens": torch.zeros(1, 8, dtype=torch.int64)})
+assert lm_logits.shape == (1, lm_cfg.vocab_padded) and bool(torch.isfinite(lm_logits).all())
+assert lm_shardctx.constrain(lm_logits, "dp", None) is lm_logits
+import contextlib, io
+lm_out = io.StringIO()
+with contextlib.redirect_stdout(lm_out):
+    lm_serve.main(["--device", "cpu", "--requests", "2", "--prefix-len", "8", "--suffix-len", "2",
+                   "--decode", "2"])
+assert "outputs identical: True" in lm_out.getvalue(), lm_out.getvalue()
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")

@@ -171,14 +171,36 @@ itself and drives ``graftdb_torch``. Phases:
    on both devices, and decode as ``LM_CUTS`` says. Float32 products must
    not run in TF32. Launch counts are reset before the phase and read
    after it: no kernel of the port may launch. Results go to ``lm`` in
-   ``chip_smoke.json``;
+   ``chip_smoke.json``. The served model is drawn again from ``SEED`` for
+   the last phase's trace, so that its 11.2 GB are free for 6c;
+6c. LM training path: ``repro_torch.launch.train.main`` at stablelm-3b's
+   published width and depth (2.8 B parameters, float32, ``adamw``, each
+   period rematerialized), 4 steps of 1 x 4,096 tokens (one chip's share
+   of the reference's ``train_4k``): every loss and grad norm finite; the
+   median CUDA-event ms of steps 2-4 (``TrainTimer``), tokens/s, the
+   model-FLOPs share (6 * N * tokens over the step, against the CUDA
+   cores' FP32 peak and against the rate of float32 products as three
+   TF32 products, both of ``launch/roofline.py``) and the peak memory. Then one step at each
+   smoke config (and stablelm-3b at 2 microbatches, and at its published
+   widths over 1 x 1,024 tokens at 1 layer and at 2 with the attention
+   rescaled, ``TRAIN_WIDE``) on the card and the CPU from the same
+   parameters and batch, held within the limits of ``TRAIN_TOL``. Then the driver at chatglm3-6b's smoke config, 6 steps
+   with checkpoints every 3 under ``chiprun_out/train_resume``, resumed to
+   9, against 9 steps without a break, with deterministic algorithms:
+   the restored state equals the saved one, and the losses and the final
+   state equal the unbroken run's, bit for bit. Float32 products must not
+   run in TF32; no kernel of the port may launch. Results go to ``train``
+   in ``chip_smoke.json``;
 7. the device time per call of the fused chain (its replay and phase 3's
    two-stage chain with grants, filters and a sink), of the probes B2, B4
    and B3 (their replays), of B5 at 65,536 keys, of the four probes at one
    key and of the recurrence at ``[2, 4096, 4096]``, by kernel, memset and
    copy; the mesh plane's exchange at each d, join and aggregate, as the
-   sum of their kernels; the served model's decode step (its kernels and
-   their device time, the card's busy share in a step); the segmented sum's phase-3 calls and its main-path
+   sum of their kernels; one step of phase 6c's training run, drawn again
+   from its seed (its kernels, their device time, the largest by name, the
+   card's busy share in a step); the served model's decode step (its
+   kernels and their device time, the card's busy share in a step); the
+   segmented sum's phase-3 calls and its main-path
    replay: the two passes by device time; all from ``torch.profiler``
    traces, last, since a trace leaves every later launch slower on the
    host; then the segmented sum's event mean again after the traces. The
@@ -227,16 +249,6 @@ SCALE = 1.0
 TWIN_SCALE = 0.1
 N_QUERIES = 12
 SEED = 7
-
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the CUDA-core
-#: float32 rate (also used as the ALU rate of 32-bit integer work), and the
-#: bf16 and TF32 tensor-core rates. float32 work that must keep float32's
-#: accuracy runs fastest as three TF32 products, at a third of the TF32 rate
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
-TF32_TENSOR_OPS_PER_S = 494.7e12
-F32_ACCURATE_OPS_PER_S = TF32_TENSOR_OPS_PER_S / 3
 
 #: the kernel-ops path: attention calls (label, [BH, S, dh], dtype, window)
 #: at the widths of configurations the reference ships, at its train_4k
@@ -368,8 +380,67 @@ LM_CUTS = (
 LM_CUT_TOKENS = 32
 LM_LAST = 8
 #: the served model's decode step whose device time the last phase reads
-#: from a profiler trace (``trace_lm``): its record and the call
+#: from a profiler trace (``trace_lm``): its record and what builds the call
 LM_TRACES = []
+
+
+#: phase 6c, the LM training path: the train driver's arguments (the
+#: published stablelm-3b, float32, ``adamw``, remat on; 1 x 4,096 tokens,
+#: one chip's share of the reference's ``train_4k``: 256 x 4,096 on its
+#: 256-chip mesh), and the steps whose CUDA-event median is the step time
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4
+TRAIN_TIMED = slice(1, None)
+#: card against CPU, one step at each smoke config (and one family at 2
+#: microbatches): of the CPU's value, the loss and grad norm; every
+#: parameter within TRAIN_PARAM_TOL (a first step moves a parameter by
+#: lr |u| with |u| = |g| / (|g| + eps) < 1, so two steps of opposite sign
+#: differ by less than 2 * lr, and each result's float32 rounding adds an
+#: ulp of the parameter), all but TRAIN_STRAY of them within 1e-5;
+#: the moments within TRAIN_MOMENT_TOL of the tree's largest |moment|;
+#: ``adamw_bf16``'s moments are rounded to bf16, and float32 moments a
+#: rounding apart may round to neighbouring bf16 values, one bf16 ulp (at
+#: most 2^-7 of the largest |moment|): TRAIN_BF16_MOMENT_TOL.
+#: rwkv6-7b's chunk products round their inputs to bf16, and inputs that
+#: differ in their last float32 bit round apart (``tests/test_torch_train.py``:
+#: its gradients differ from the reference's by 1.5e-3 of their global
+#: norm on the CPU), so it gets looser limits: the loss and grad norm
+#: those of the CPU tests, its moments 5e-2 (1.3e-2 measured on an NVIDIA
+#: H100 80GB HBM3 against its host's CPU), all but 1e-2 of its parameters
+#: within 1e-5 (1.75e-3 measured there)
+TRAIN_LR = 3e-4
+TRAIN_PARAM_TOL = 2 * TRAIN_LR + 1e-6
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5}
+TRAIN_RWKV_TOL = {"loss": 1e-3, "grad_norm": 1e-2}
+TRAIN_STRAY, TRAIN_RWKV_STRAY = 1e-4, 1e-2
+TRAIN_MOMENT_TOL, TRAIN_BF16_MOMENT_TOL, TRAIN_RWKV_MOMENT_TOL = 1e-3, 2**-6, 5e-2
+TRAIN_MICROBATCH_ARCH = "stablelm-3b"
+#: the same step at TRAIN_ARCH's published widths (d_model 2,560, its
+#: 50,304-token vocabulary and 6,912-wide FFN) over 1 x 1,024 tokens, the
+#: depth cut so that the CPU's step stays short: the products at the full
+#: run's widths, on cuBLAS against the CPU's. (label, config updates,
+#: batch, seq, attention rescaled, held to the smoke configs' limits.)
+#: As in phase 6b, the reference's init scales q and k so that a score's
+#: float32 rounding becomes a softmax weight's relative error, and the
+#: backward amplifies it layer on layer: at 1 layer the two devices agree
+#: within those limits, at 2 they do not (grad norm 1.9e-5 of the CPU's,
+#: 2.2e-4 of the parameters beyond 1e-5, on an NVIDIA H100 80GB HBM3
+#: against its host's CPU), and with the attention weights rescaled to
+#: their contracted widths (``attention_rescaled``) 2 layers agree again
+#: (3.5e-6 of the largest moment). The 2-layer step at the reference's
+#: init is recorded
+TRAIN_WIDE = (
+    ("1 layer", dict(n_layers=1), 1, 1024, False, True),
+    ("2 layers, attention rescaled", dict(n_layers=2), 1, 1024, True, True),
+    ("2 layers", dict(n_layers=2), 1, 1024, False, False),
+)
+#: the resume leg: the reference test's driver arguments (chatglm3-6b at
+#: its smoke config), 6 steps with checkpoints every 3, then 9
+TRAIN_RESUME = ["--arch", "chatglm3-6b", "--smoke", "--batch", "4", "--seq", "32",
+                "--ckpt-every", "3"]
+#: the train step whose device time the last phase reads from a profiler
+#: trace (``trace_train``): its record and what builds the call
+TRAIN_TRACES = []
 
 
 def log(*a):
@@ -562,9 +633,15 @@ def probe_touch(keys, tkeys):
     return int(torch.unique(torch.cat(seen)).numel()), found, steps
 
 
-def bound(nbytes, ops, ops_per_s=ALU_OPS_PER_S):
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
+def bound(nbytes, ops, ops_per_s=None):
+    """The least ms for ``nbytes`` of HBM traffic and ``ops`` operations at
+    ``ops_per_s``, by default the CUDA cores' float32 rate (also the ALU
+    rate of 32-bit integer work); the H100's peaks are those of
+    ``launch/roofline.py``."""
+    from repro_torch.launch import roofline
+
+    bytes_ms = nbytes / roofline.H100_HBM_BW * 1e3
+    ops_ms = ops / (ops_per_s or roofline.H100_FP32_FLOPS) * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -629,13 +706,15 @@ def attention_bound(q, window):
     flops (two products) per visible (query, key) pair, at the bf16
     tensor-core rate in bf16 and, in float32, at the fastest rate that
     holds float32's accuracy: three TF32 products (164.9 TFLOP/s, above the
-    CUDA cores' 67)."""
+    CUDA cores' 66.9)."""
     import torch
+
+    from repro_torch.launch import roofline
 
     bh, s, dh = q.shape
     t = np.arange(s, dtype=np.int64)
     pairs = bh * int(np.minimum(t + 1, s if window is None else window).sum())
-    rate = BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16 else F32_ACCURATE_OPS_PER_S
+    rate = roofline.H100_BF16_FLOPS if q.dtype == torch.bfloat16 else roofline.H100_FP32X3_FLOPS
     return bound(4 * q.numel() * q.element_size(), 4 * dh * pairs, rate)
 
 
@@ -2624,12 +2703,13 @@ def rel_err(got, want):
     return float((g - w).abs().max() / w.abs().max())
 
 
-def lm_check(out, label, err, held=True, limit=LM_TOL):
-    """Logs ``err`` (a share of the largest |reference| value); where it is
-    held and not below ``limit``, records the failure in ``out`` for the
-    phase to raise at its end, after every number is recorded."""
+def lm_check(out, label, err, held=True, limit=LM_TOL, unit="of max |ref|"):
+    """Logs ``err`` (by default a share of the largest |reference| value);
+    where it is held and not below ``limit``, records the failure in
+    ``out`` for the phase to raise at its end, after every number is
+    recorded."""
     bad = held and not err < limit
-    log(f"  {label}: {err:.3g} of max |ref|" + (f" (limit {limit:.3g})" if held else " (recorded)")
+    log(f"  {label}: {err:.3g} {unit}" + (f" (limit {limit:.3g})" if held else " (recorded)")
         + (" FAILED" if bad else ""))
     if bad:
         out.setdefault("failed", []).append(f"{label}: {err}")
@@ -2639,8 +2719,9 @@ def lm_check(out, label, err, held=True, limit=LM_TOL):
 def lm_serve(out):
     """Phase 6b, 1-2: the served model through ``serve_fold`` on the card,
     then its decode-through-cache, full-forward and prefill logits on one
-    prompt. Leaves the model's decode step, on a cache, in ``LM_TRACES``
-    for the last phase."""
+    prompt. Leaves in ``LM_TRACES`` for the last phase what builds the
+    model's decode step on a cache: the model is drawn again there from
+    ``SEED``, so that its 11.2 GB are free for phase 6c."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2702,7 +2783,6 @@ def lm_serve(out):
     for k in sorted({k for k in LM_DEPTHS if k < cfg.n_layers} | {cfg.n_layers}):
         sub_cfg, sub = depth_cut(cfg, params, k)
         dec, fwd, pre_logits, pre_cache, cache = three_paths(sub_cfg, sub, tokens)
-        full_cache = cache if k == cfg.n_layers else None
         held = k <= LM_HELD_DEPTH
         out["consistency"][f"depth_{k}"] = {
             "decode_vs_forward": lm_check(out, f"depth {k}: decode vs forward logits",
@@ -2722,11 +2802,21 @@ def lm_serve(out):
         f"vs forward logits", rel_err(dec, fwd), held=False)
     del dec, fwd
 
-    def step():  # the full model's next step, on its cache
+    def setup():  # the served model drawn again from SEED, its cache over the prompt
+        params = M.init_params(cfg, torch.Generator(device=LM_DEVICE).manual_seed(SEED),
+                               device=LM_DEVICE)
+        cache = M.init_cache(cfg, 1, 256, dtype=torch.float32, device=LM_DEVICE)
         with torch.inference_mode():
-            M.decode_step(cfg, params, full_cache, tokens[:, :1], n)
+            for t in range(n):
+                M.decode_step(cfg, params, cache, tokens[:, t : t + 1], t)
 
-    LM_TRACES.append((out["serve"], step))
+        def step():  # the full model's next step, on its cache
+            with torch.inference_mode():
+                M.decode_step(cfg, params, cache, tokens[:, :1], n)
+
+        return step
+
+    LM_TRACES.append((out["serve"], setup))
 
 
 def three_paths(cfg, params, tokens):
@@ -2845,7 +2935,7 @@ def lm_cut(out, arch, updates, cut, decode, limit):
             W = M.lm_head_weight(cfg, params)
             res = {"hidden": hidden, "logits": torch.einsum("sd,dv->sv", hidden[0, -LM_LAST:], W)}
             if cfg.moe is not None:
-                p = M._rep(params["groups"][0], 0)["attn0"]
+                p = M._unstack(params["groups"][0], 1)[0]["attn0"]
                 x = M.embed_tokens(cfg, params, b["tokens"])
                 h = x + layers.attention(p, layers.rms_norm(p["ln1"], x), cfg,
                                          window=cfg.attn_window)
@@ -2927,7 +3017,8 @@ def trace_lm(report, iters=5):
     median; the ratio is the card's busy share in a step."""
     import torch
 
-    for rec, call in LM_TRACES:
+    for rec, setup in LM_TRACES:
+        call = setup()
         call()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2942,6 +3033,301 @@ def trace_lm(report, iters=5):
         log(f"lm decode step: {rec['step_kernels']:.0f} kernels, {rec['step_device_ms']:.4f} ms "
             f"on the device; busy share "
             f"{ {k: round(v['busy_share'], 4) for k, v in rec['legs'].items()} }")
+        del call
+        torch.cuda.empty_cache()
+
+
+class TrainTimer:
+    """Wraps the train driver's ``make_train_step`` (``repro_torch.launch.
+    train`` calls it through its module) so that each step it returns is
+    bracketed by a pair of CUDA events, without a synchronize of its own,
+    and keeps its metrics (tensors on the card, read after the run)."""
+
+    def __init__(self):
+        from repro_torch.launch import train
+
+        self.mod, self.orig, self.events, self.metrics = train, train.make_train_step, [], []
+
+    def __enter__(self):
+        import torch
+
+        def make(*args, **kwargs):
+            step = self.orig(*args, **kwargs)
+
+            def timed(params, opt, batch):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = step(params, opt, batch)
+                end.record()
+                self.events.append((start, end))
+                self.metrics.append(out[2])
+                return out
+
+            return timed
+
+        self.mod.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.orig
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def values(self, key):
+        return [float(m[key]) for m in self.metrics]
+
+
+def train_full(out):
+    """Phase 6c, 1: stablelm-3b trained at full width and depth through
+    the driver's entry point. Leaves in ``TRAIN_TRACES`` what builds one
+    step of the same run for the last phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as T
+
+    args = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS)]
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainTimer() as timer:
+        params, opt = T.main(args)
+    wall = time.perf_counter() - t0
+    step_ms = timer.ms()
+    losses, gnorms = timer.values("loss"), timer.values("grad_norm")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in leaves(params))
+    del params, opt
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    median = float(np.median(step_ms[TRAIN_TIMED]))
+    n_active = cfg.param_counts()["active"]
+    model_flops = 6.0 * n_active * tokens
+    rec = out["full"] = {
+        "arch": TRAIN_ARCH, "args": args, "params": n_params, "param_counts_active": n_active,
+        "optimizer": cfg.optimizer, "remat": cfg.remat, "tokens_per_step": tokens,
+        "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+        "step_ms_median": median, "tokens_per_s": tokens / (median / 1e3),
+        "model_flops": model_flops,
+        "model_flops_share_fp32": model_flops / (median / 1e3) / roofline.H100_FP32_FLOPS,
+        "model_flops_share_fp32x3": model_flops / (median / 1e3) / roofline.H100_FP32X3_FLOPS,
+        "max_memory_allocated": peak, "allocated_before": base, "wall_s": wall,
+        "card": card_smi(),
+    }
+    log(f"lm train {TRAIN_ARCH} ({n_params} params, {cfg.optimizer}, remat {cfg.remat}), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses {losses}, grad norms {gnorms}; "
+        f"step ms {step_ms}; median of steps 2-{TRAIN_STEPS} {median:.3f} ms, "
+        f"{rec['tokens_per_s']:.1f} tokens/s, model-FLOPs share of the FP32 peak "
+        f"{rec['model_flops_share_fp32']:.4f} and of three TF32 products' "
+        f"{rec['model_flops_share_fp32x3']:.4f}; peak {peak / 1e9:.3f} GB allocated "
+        f"({base / 1e9:.3f} GB before); {wall:.1f} s")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"lm train: losses {losses}, grad norms {gnorms}")
+
+    def setup():  # the run drawn again from its seed: its state after one step
+        from repro_torch.models import model as M
+        from repro_torch.train.data import batch_at
+        from repro_torch.train.optim import init_opt_state
+
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        opt = init_opt_state(params, cfg.optimizer)
+        step = T.make_train_step(cfg, lr=1e-3)
+        batch = batch_at(0, seed=1, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         vocab=cfg.vocab, structured=True)
+        step(params, opt, batch)
+        return lambda: step(params, opt, batch)
+
+    TRAIN_TRACES.append((rec, setup))
+
+
+def _tree_err(got, want):
+    """max |got - want| over the tree's largest |want|, both on the host."""
+    got, want = leaves(got), leaves(want)
+    scale = max(float(w.float().abs().max()) for w in want)
+    return max(float((g.float().cpu() - w.float()).abs().max()) for g, w in zip(got, want)) / scale
+
+
+def train_twin(out, arch, n_microbatches=1, wide=None):
+    """Phase 6c, 2: one train step of ``arch``'s smoke config (or, with
+    ``wide`` = (config updates, batch, seq, rescaled, held), its published
+    widths with those updates, the attention weights rescaled by
+    ``attention_rescaled`` if ``rescaled``, its measures held to their
+    limits if ``held``) on the card and on the CPU, from the same
+    parameters (drawn on the CPU from ``SEED``, constant leaves spread)
+    and the same batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train.data import batch_at
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    if wide is None:
+        cfg, B, S, held = smoke_config(arch), 4, 32, True
+    else:
+        updates, B, S, rescaled, held = wide
+        cfg = dataclasses.replace(get_config(arch), **updates)
+    gen = torch.Generator().manual_seed(SEED)
+    params = spread_constants(M.init_params(cfg, gen, device="cpu"), gen)
+    if wide is not None and rescaled:
+        params = attention_rescaled(cfg, params)
+    batch = batch_at(0, seed=1, global_batch=B, seq_len=S, vocab=cfg.vocab, structured=True)
+    rng = np.random.default_rng(SEED)
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = (rng.normal(size=(B, cfg.n_prefix_embeds, cfg.d_model)) * 0.1
+                                  ).astype(np.float32)
+    if cfg.n_encoder_layers:
+        batch["src_embeds"] = (rng.normal(size=(B, 8, cfg.d_model)) * 0.1).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = M.tree_map(lambda t: t.to(dev, copy=True), params, torch.is_tensor)
+        opt = init_opt_state(p, cfg.optimizer)
+        step = make_train_step(cfg, n_microbatches=n_microbatches, lr=TRAIN_LR, device=dev)
+        p, opt, metrics = step(p, opt, batch)
+        res[dev] = (p, opt, {k: float(v) for k, v in metrics.items()})
+    (gp, go, gm), (cp, co, cm) = res["cuda"], res["cpu"]
+    rwkv = arch == "rwkv6-7b"
+    tol = TRAIN_RWKV_TOL if rwkv else TRAIN_TOL
+    label = f"{arch} x{n_microbatches}" + (
+        "" if wide is None else f" at width {cfg.d_model}, {cfg.n_layers} layers"
+        + (", attention rescaled" if rescaled else ""))
+    rec = {"optimizer": cfg.optimizer, "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+           "tokens": [B, S], "held": held, "card": gm, "cpu": cm}
+    for k in ("loss", "grad_norm"):
+        rec[f"{k}_rel_err"] = abs(gm[k] - cm[k]) / abs(cm[k])
+        lm_check(out, f"train {label}: {k} card vs CPU", rec[f"{k}_rel_err"], held,
+                 limit=tol[k], unit="of the CPU's")
+    diffs = [(g.cpu() - c).abs() for g, c in zip(leaves(gp), leaves(cp))]
+    rec["param_max_abs_err"] = max(float(d.max()) for d in diffs)
+    rec["param_share_beyond_1e-5"] = sum(int((d > 1e-5).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    lm_check(out, f"train {label}: parameters card vs CPU", rec["param_max_abs_err"], held,
+             limit=TRAIN_PARAM_TOL, unit="largest |difference|")
+    lm_check(out, f"train {label}: parameters beyond 1e-5", rec["param_share_beyond_1e-5"],
+             held, limit=TRAIN_RWKV_STRAY if rwkv else TRAIN_STRAY, unit="of them")
+    moment_tol = (TRAIN_RWKV_MOMENT_TOL if rwkv else TRAIN_BF16_MOMENT_TOL
+                  if cfg.optimizer == "adamw_bf16" else TRAIN_MOMENT_TOL)
+    for k in ("m", "v"):
+        rec[f"{k}_err"] = lm_check(out, f"train {label}: {k} card vs CPU", _tree_err(go[k], co[k]),
+                                   held, limit=moment_tol, unit="of the tree's max |CPU|")
+    return rec
+
+
+def train_resume(out):
+    """Phase 6c, 3: the driver at the smoke config, 6 steps with
+    checkpoints every 3, then resumed to 9, against 9 steps without a
+    break; deterministic algorithms on (the embedding's backward adds with
+    atomics otherwise), so the two runs must agree bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import train as T
+    from repro_torch.train import checkpoint as CKPT
+
+    ckpt = OUT_DIR / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # warn_only: cuBLAS promises determinism only under
+    # CUBLAS_WORKSPACE_CONFIG, which must be set for the whole process and
+    # slows the enqueue of every small product (phase 6b's decode steps ran
+    # at 63-68 ms with it, 33-51 without); on one stream its products
+    # repeat anyway, and the bit comparisons below are the check
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with TrainTimer() as first:
+            p6, o6 = T.main(TRAIN_RESUME + ["--steps", "6", "--ckpt-dir", str(ckpt)])
+        restored_p, restored_o, manifest = CKPT.restore(ckpt, target_params=p6, target_opt=o6)
+        same_restore = all(torch.equal(a, b) for a, b in zip(leaves((restored_p, restored_o)),
+                                                             leaves((p6, o6))))
+        with TrainTimer() as resumed:
+            p9, o9 = T.main(TRAIN_RESUME + ["--steps", "9", "--ckpt-dir", str(ckpt)])
+        with TrainTimer() as straight:
+            q9, r9 = T.main(TRAIN_RESUME + ["--steps", "9"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    broken = first.values("loss") + resumed.values("loss")
+    whole = straight.values("loss")
+    rec = out["resume"] = {
+        "args": TRAIN_RESUME, "restored_step": manifest["step"], "restore_equal": same_restore,
+        "losses_resumed": broken, "losses_straight": whole,
+        "losses_equal": broken == whole,
+        "state_equal": all(torch.equal(a, b) for a, b in zip(leaves((p9, o9)),
+                                                             leaves((q9, r9)))),
+    }
+    log(f"lm train resume: restored step {manifest['step']} equal to the saved state "
+        f"{same_restore}; losses 6 + 3 {broken}, 9 straight {whole}; equal "
+        f"{rec['losses_equal']}, final state equal {rec['state_equal']}")
+    if not (same_restore and rec["losses_equal"] and rec["state_equal"]
+            and manifest["step"] == 6 and len(whole) == 9):
+        out.setdefault("failed", []).append(f"resume: {rec}")
+
+
+def train_phase(report):
+    """Phase 6c: the LM training path on the card. Launch counts are reset
+    before it and read after it: no kernel of the port may launch."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import _build
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("lm train: float32 products must not run in TF32")
+    t0 = time.perf_counter()
+    out = report["train"] = {}
+    _build.reset_launch_counts()
+    train_full(out)
+    out["twins"] = {arch: train_twin(out, arch) for arch in ARCH_IDS}
+    out["twins"][f"{TRAIN_MICROBATCH_ARCH} x2"] = train_twin(out, TRAIN_MICROBATCH_ARCH, 2)
+    for label, *wide in TRAIN_WIDE:
+        out["twins"][f"{TRAIN_ARCH} {label}"] = train_twin(out, TRAIN_ARCH, wide=wide)
+    train_resume(out)
+    launches = _build.launch_counts()
+    report["launches"]["train"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launches on the LM training path: {launches}; phase {out['seconds']:.1f} s")
+    if any(launches.values()):
+        raise AssertionError(f"lm train: kernels launched on the LM training path: {launches}")
+    if out.get("failed"):
+        raise AssertionError(f"lm train: {out['failed']}")
+
+
+def trace_train(report):
+    """Last phase: one step of the full-width training run from a profiler
+    trace: its CUDA kernels and their device time, beside the run's
+    CUDA-event median; the ratio is the card's busy share in a step."""
+    import torch
+
+    for rec, setup in TRAIN_TRACES:
+        call = setup()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        rec["step_device_ms"] = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        rec["step_kernels"] = len(kernels)
+        rec["busy_share"] = rec["step_device_ms"] / rec["step_ms_median"]
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        rec["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+        log(f"lm train step: {rec['step_kernels']} kernels, {rec['step_device_ms']:.3f} ms on "
+            f"the device; busy share {rec['busy_share']:.4f}; largest: "
+            f"{ {k[:60]: round(v, 2) for k, v in list(rec['top_kernels_ms'].items())[:5]} }")
+        del call
+        torch.cuda.empty_cache()
 
 
 def card_smi():
@@ -2973,9 +3359,11 @@ def main():
     rows = smoke(report)
     rows += kernel_ops(report)
     lm_phase(report)
+    train_phase(report)
     trace_launch_path(report)
     trace_mesh(report)
     trace_seg_passes(report)
+    trace_train(report)
     trace_lm(report)
 
     OUT_DIR.mkdir(exist_ok=True)

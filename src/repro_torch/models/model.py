@@ -10,7 +10,8 @@ reference scans a group with ``lax.scan``, the port loops over its
 repetitions in eager torch.
 
 Modes:
-* forward_train: full-sequence forward to the final hidden states,
+* forward_train: full-sequence forward to the final hidden states
+  (each period rematerialized in the backward where ``cfg.remat`` is set),
 * prefill: full-sequence, also returns the per-layer KV caches,
 * decode_step: one token against ring-buffer KV caches / recurrent
   states, written in place (``launch.serve.fork`` copies a cache).
@@ -27,6 +28,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import attention, attention_decode, mlp, rms_norm, rope
@@ -66,6 +68,26 @@ def tree_map(fn: Callable, tree, is_leaf: Callable[[Any], bool]):
     raise TypeError(f"not a leaf, dict or list: {type(tree).__name__}")
 
 
+def tree_leaves_with_path(tree, prefix: str = ""):
+    """[(key, leaf)] of a tree of dicts and lists, in the reference's
+    (``jax.tree_util``) order: dict keys sorted, list items in order. A
+    key joins the dict keys and list indices on the way down with '/',
+    as the reference's checkpoint keys do."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, list):
+        items = list(enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    return [kl for k, v in items
+            for kl in tree_leaves_with_path(v, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in the reference's order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
 def _is_shape(x) -> bool:
     return isinstance(x, tuple)
 
@@ -74,19 +96,34 @@ def _is_shape_dtype(x) -> bool:
     return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
 
 
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A copy of ``a`` as a tensor; a bfloat16 array (``ml_dtypes``' type,
+    which torch cannot read) by its 2-byte words."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy; bfloat16, which numpy lacks, widened
+    exactly to float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def params_from_numpy(tree, device="cuda"):
-    """A tree of numpy arrays (the reference's parameters or cache, as
-    ``np.asarray`` of each leaf, same nesting) as tensors on ``device``,
-    each keeping its dtype."""
+    """A tree of numpy arrays (the reference's parameters, optimizer state
+    or cache, as ``np.asarray`` of each leaf, same nesting) as tensors on
+    ``device``, each keeping its dtype."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree,
+    return tree_map(lambda a: _from_numpy(a).to(dev), tree,
                     lambda x: isinstance(x, np.ndarray))
 
 
 def params_to_numpy(tree):
-    """The tensors of a tree as numpy arrays (on the host), same nesting."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree,
-                    lambda x: isinstance(x, torch.Tensor))
+    """The tensors of a tree as numpy arrays (on the host), same nesting;
+    bfloat16 leaves as float32 of the same values."""
+    return tree_map(_to_numpy, tree, lambda x: isinstance(x, torch.Tensor))
 
 
 # ---------------------------------------------------------------------------
@@ -111,10 +148,15 @@ def _block_kinds(pattern: Tuple[str, ...]) -> List[str]:
     return [f"{k}{i}" for i, k in enumerate(pattern)]
 
 
-def _rep(tree, r: int):
-    """Repetition ``r`` of a group's (or a group cache's) stacked leaves:
-    views, so a write lands in the stacked tensor."""
-    return {k: _rep(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
+def _unstack(tree, n_rep: int) -> list:
+    """The ``n_rep`` repetitions of a group's (or a group cache's) stacked
+    leaves, as trees of views (``torch.unbind``), so a cache write lands in
+    the stacked tensor. Under autograd each stacked leaf gets its gradient
+    once, stacked from its repetitions', where indexing each repetition
+    would build a gradient of the whole stacked leaf per repetition."""
+    cols = {k: _unstack(v, n_rep) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: c[r] for k, c in cols.items()} for r in range(n_rep)]
 
 
 # ---------------------------------------------------------------------------
@@ -318,12 +360,21 @@ def _block_apply(cfg, kind: str, p, x, *, causal=True, memory=None):
 
 
 def _run_groups(cfg, groups_params, patterns, x, *, causal, memory):
+    """Each group's periods (one repetition of its pattern) in order. With
+    ``cfg.remat`` and gradients enabled, each period is rematerialized in
+    the backward (``torch.utils.checkpoint``), as the reference wraps it
+    in ``jax.checkpoint``: only the periods' inputs stay saved."""
+    remat = cfg.remat and torch.is_grad_enabled()
     for (pattern, n_rep), gp in zip(patterns, groups_params):
         kinds = _block_kinds(pattern)
-        for r in range(n_rep):
-            pp = _rep(gp, r)
-            for name, kind in zip(kinds, pattern):
-                x = _block_apply(cfg, kind, pp[name], x, causal=causal, memory=memory)
+        for pp in _unstack(gp, n_rep):
+
+            def period(xc, pp=pp):
+                for name, kind in zip(kinds, pattern):
+                    xc = _block_apply(cfg, kind, pp[name], xc, causal=causal, memory=memory)
+                return xc
+
+            x = checkpoint(period, x, use_reentrant=False) if remat else period(x)
     return x
 
 
@@ -507,8 +558,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     x = embed_tokens(cfg, params, token).to(params["embed"].dtype)
     for (pattern, n_rep), gp, gc in zip(layer_groups(cfg), params["groups"], cache):
         kinds = _block_kinds(pattern)
-        for r in range(n_rep):
-            pp, cc = _rep(gp, r), _rep(gc, r)
+        for pp, cc in zip(_unstack(gp, n_rep), _unstack(gc, n_rep)):
             for name, kind in zip(kinds, pattern):
                 x = _block_decode(cfg, kind, pp[name], cc[name], x, pos)
     x = rms_norm(params["final_norm"], x)
@@ -531,8 +581,7 @@ def prefill(cfg: ModelConfig, params, batch):
     for (pattern, n_rep), gp in zip(layer_groups(cfg), params["groups"]):
         kinds = _block_kinds(pattern)
         per_rep: List[Dict[str, Dict[str, torch.Tensor]]] = []
-        for r in range(n_rep):
-            pp = _rep(gp, r)
+        for pp in _unstack(gp, n_rep):
             cc = {}
             for name, kind in zip(kinds, pattern):
                 if kind.startswith("attn"):

@@ -1,7 +1,7 @@
 """Inputs shared by the CPU and card tests that hold the kernel-ops entry
 point (``ops.linear_recurrence``, B8; ``ops.attention``, B9) against the
-port's model layers (``rg_lru``, ``layers.attention``). Imports only
-torch, numpy and the port."""
+port's model layers (``rg_lru``, ``layers.attention``), and by the
+training tests. Imports only torch, numpy and the port."""
 
 import math
 
@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import layers
+from repro_torch.train.data import batch_at
 
 
 def rglru_inputs(device):
@@ -82,3 +83,18 @@ def spread_params(tree, seed=0):
         return np.asarray(draw(name, t), dtype=t.dtype)
 
     return walk(tree)
+
+
+def train_batch(cfg, step=0, B=4, S=32):
+    """The training tests' batch of ``step`` as numpy arrays: the
+    structured token stream (``batch_at``, seed 1, which is the
+    reference's bit for bit), and ``prefix_embeds`` / ``src_embeds`` drawn
+    from ``default_rng(step)`` where the config has them."""
+    b = batch_at(step, seed=1, global_batch=B, seq_len=S, vocab=cfg.vocab, structured=True)
+    rng = np.random.default_rng(step)
+    if cfg.frontend == "vision_stub":
+        b["prefix_embeds"] = (rng.normal(size=(B, cfg.n_prefix_embeds, cfg.d_model)) * 0.1
+                              ).astype(np.float32)
+    if cfg.n_encoder_layers:
+        b["src_embeds"] = (rng.normal(size=(B, S // 4, cfg.d_model)) * 0.1).astype(np.float32)
+    return b

@@ -1008,3 +1008,71 @@ def test_cuda_model_matches_cpu(cuda, arch):
             continue
         err = float((got.cpu() - want).abs().max() / want.abs().max())
         assert err < 1e-4, f"{arch}: card against CPU {err:.3g} of max |CPU|"
+
+
+TRAIN_STEP_CASES = [
+    (a, 1) for a in ("recurrentgemma-9b", "llama4-maverick-400b-a17b", "dbrx-132b",
+                     "h2o-danube-3-4b", "stablelm-3b", "starcoder2-7b", "chatglm3-6b",
+                     "rwkv6-7b", "pixtral-12b", "seamless-m4t-large-v2")] + [("stablelm-3b", 2)]
+
+
+@pytest.mark.parametrize("arch,n_microbatches", TRAIN_STEP_CASES)
+def test_cuda_train_step_matches_cpu(cuda, arch, n_microbatches):
+    """One train step of each arch's reduced config on the card against the
+    CPU, from the same parameters (constant leaves drawn,
+    ``_torch_lm.spread_params``) and batch (``_torch_lm.train_batch``):
+    loss and grad norm within 1e-5 of the CPU's, every parameter within
+    2 * lr + 1e-6 (a first step moves it by lr |g| / (|g| + eps), plus a
+    rounding) and all but 1e-4 of them within 1e-5, the moments within 1e-3
+    of the tree's largest |CPU| value (``adamw_bf16``'s bf16 moments
+    within 2^-6: float32 moments a rounding apart may round to
+    neighbouring bf16 values). rwkv6-7b's chunk products round their
+    inputs to bf16, and inputs that differ in their last float32 bit
+    round apart: loss 1e-3, grad norm 1e-2, moments 5e-2, all but 1e-2 of
+    the parameters within 1e-5, as in ``chip_smoke.py`` phase 6c. Every
+    measure is in the failure's message."""
+    measured, limits = train_step_card_vs_cpu(cuda, arch, n_microbatches)
+    assert all(measured[k] <= limits[k] for k in limits), (arch, measured, limits)
+
+
+def train_step_card_vs_cpu(cuda, arch, n_microbatches):
+    """One train step on the card and on the CPU: the measures of
+    ``test_cuda_train_step_matches_cpu`` and their limits."""
+    from _torch_lm import spread_params, train_batch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    lr = 3e-4
+    rwkv = arch == "rwkv6-7b"
+    cfg = smoke_config(arch)
+    params = M.params_from_numpy(spread_params(M.params_to_numpy(
+        M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"))), "cpu")
+    batch = train_batch(cfg)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = M.tree_map(lambda t: t.to(dev, copy=True), params, torch.is_tensor)
+        opt = init_opt_state(p, cfg.optimizer)
+        step = make_train_step(cfg, n_microbatches=n_microbatches, lr=lr, device=dev)
+        out[dev.type] = step(p, opt, batch)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    (gp, go, gm), (cp, co, cm) = out["cuda"], out["cpu"]
+    measured, limits = {}, {}
+    for k, tol in (("loss", 1e-3 if rwkv else 1e-5), ("grad_norm", 1e-2 if rwkv else 1e-5)):
+        measured[k] = abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k]))
+        limits[k] = tol
+    diffs = [(g.cpu() - c).abs() for g, c in zip(M.tree_leaves(gp), M.tree_leaves(cp))]
+    measured["param_max"] = max(float(d.max()) for d in diffs)
+    limits["param_max"] = 2 * lr + 1e-6
+    measured["param_share_beyond_1e-5"] = sum(int((d > 1e-5).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    limits["param_share_beyond_1e-5"] = 1e-2 if rwkv else 1e-4
+    moment_tol = 5e-2 if rwkv else 2**-6 if cfg.optimizer == "adamw_bf16" else 1e-3
+    for k in ("m", "v"):
+        got, want = M.tree_leaves(go[k]), M.tree_leaves(co[k])
+        scale = max(float(w.float().abs().max()) for w in want)
+        measured[k] = max(float((g.float().cpu() - w.float()).abs().max())
+                          for g, w in zip(got, want)) / scale
+        limits[k] = moment_tol
+    return measured, limits

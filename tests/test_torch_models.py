@@ -156,9 +156,9 @@ def _ref_routes(rcfg, rp, x):
 def _port_routes(cfg, params, x):
     out = []
     for (pattern, n_rep), gp in zip(M.layer_groups(cfg), params["groups"]):
-        for r in range(n_rep):
+        for pp in M._unstack(gp, n_rep):
             for i, kind in enumerate(pattern):
-                p = M._rep(gp, r)[f"{kind}{i}"]
+                p = pp[f"{kind}{i}"]
                 if "router" in p:
                     h = x + layers.attention(p, layers.rms_norm(p["ln1"], x), cfg,
                                              window=cfg.attn_window)

@@ -336,6 +336,22 @@ with contextlib.redirect_stdout(lm_out):
     lm_serve.main(["--device", "cpu", "--requests", "2", "--prefix-len", "8", "--suffix-len", "2",
                    "--decode", "2"])
 assert "outputs identical: True" in lm_out.getvalue(), lm_out.getvalue()
+from repro_torch.train import checkpoint as lm_ckpt, compress as lm_compress, data as lm_data
+from repro_torch.train import elastic as lm_elastic, optim as lm_optim, train_step as lm_step
+from repro_torch.launch import roofline as lm_roofline, train as lm_train
+import tempfile
+with tempfile.TemporaryDirectory() as lm_dir, contextlib.redirect_stdout(io.StringIO()):
+    lm_args = ["--device", "cpu", "--arch", "chatglm3-6b", "--smoke", "--batch", "2", "--seq", "16",
+               "--ckpt-dir", lm_dir, "--ckpt-every", "2"]
+    lm_p, lm_o = lm_train.main(lm_args + ["--steps", "2"])
+    lm_p, lm_o = lm_train.main(lm_args + ["--steps", "3"])
+    assert lm_ckpt.latest_step(lm_dir) == 3 and int(lm_o["step"]) == 3
+assert lm_data.batch_at(0, seed=1, global_batch=2, seq_len=4, vocab=7)["tokens"].shape == (2, 4)
+assert lm_elastic.ElasticController(2).evaluate().action == lm_elastic.Action.CONTINUE
+assert lm_compress.compress({"w": torch.ones(3)}, {"w": torch.zeros(3)})[0]["w"].dtype == torch.int8
+assert set(lm_optim.abstract_opt_state(lm_model.abstract_params(lm_cfg))) == {"step", "master", "m", "v"}
+assert callable(lm_step.make_train_step(lm_cfg, device="cpu"))
+assert lm_roofline.model_flops_per_device("stablelm-3b", "train_4k", 256) > 0
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")

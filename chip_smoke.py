@@ -191,6 +191,29 @@ itself and drives ``graftdb_torch``. Phases:
    state equal the unbroken run's, bit for bit. Float32 products must not
    run in TF32; no kernel of the port may launch. Results go to ``train``
    in ``chip_smoke.json``;
+6d. dry run (``repro_torch.launch.dryrun``): (a) ``run_cell`` for
+   stablelm-3b's train_4k on the 16 x 16 and 2 x 16 x 16 production
+   meshes (counted on ``meta``, once; the CPU tests and sweep count the
+   other cells): both records ``ok``, their ``hlo_stats`` and seconds
+   recorded; (b) phase 6c's own step (stablelm-3b, float32, ``adamw``,
+   remat, 1 x 4,096 tokens): the op counter over the first step of 6c's
+   run on the card (``TrainTimer(count_first=True)``) must give the
+   ``meta`` count exactly, FLOPs and bytes (the ops whose calls differ are
+   recorded); the specs' bytes on the one-shard mesh within 1% of the
+   memory 6c's parameters and optimizer state take after its run
+   (``torch.cuda.memory_allocated``); and 6c's median step at least the
+   larger of the FLOPs over the FP32 peak (66.9 TFLOP/s) and the bytes
+   over 3.35 TB/s; (c) the CLI's ``--db-plane`` at 16 x 16
+   (the data plane on 16 shards of the card at 64 M rows), its record
+   validated. Launch counts are reset before the phase and read after it
+   (B1 launches in the db plane's chains). Results go to ``dryrun`` in
+   ``chip_smoke.json``;
+8. the example twins, run before phase 7 so that the traces stay last:
+   ``examples/quickstart_torch.py`` and ``examples/serve_folding_torch.py``
+   on the card, each with launch counts reset before and read after it.
+   The quickstart's Q_B must match the reference executor and B1 must
+   launch (B1-B4's counts recorded); the serving twin, a host simulator,
+   must print its lines and launch no kernel. Results go to ``examples``;
 7. the device time per call of the fused chain (its replay and phase 3's
    two-stage chain with grants, filters and a sink), of the probes B2, B4
    and B3 (their replays), of B5 at 65,536 keys, of the four probes at one
@@ -3041,12 +3064,15 @@ class TrainTimer:
     """Wraps the train driver's ``make_train_step`` (``repro_torch.launch.
     train`` calls it through its module) so that each step it returns is
     bracketed by a pair of CUDA events, without a synchronize of its own,
-    and keeps its metrics (tensors on the card, read after the run)."""
+    and keeps its metrics (tensors on the card, read after the run). With
+    ``count_first``, the first step (outside the timed ones) runs under the
+    dry run's op counter, kept as ``counter``."""
 
-    def __init__(self):
+    def __init__(self, count_first=False):
         from repro_torch.launch import train
 
         self.mod, self.orig, self.events, self.metrics = train, train.make_train_step, [], []
+        self.count_first, self.counter = count_first, None
 
     def __enter__(self):
         import torch
@@ -3057,7 +3083,13 @@ class TrainTimer:
             def timed(params, opt, batch):
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-                out = step(params, opt, batch)
+                if self.count_first and not self.events:
+                    from repro_torch.launch.hlo_analysis import OpCounter
+
+                    with OpCounter(record_ops=True) as self.counter:
+                        out = step(params, opt, batch)
+                else:
+                    out = step(params, opt, batch)
                 end.record()
                 self.events.append((start, end))
                 self.metrics.append(out[2])
@@ -3098,12 +3130,13 @@ def train_full(out):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with TrainTimer() as timer:
+    with TrainTimer(count_first=True) as timer:
         params, opt = T.main(args)
     wall = time.perf_counter() - t0
     step_ms = timer.ms()
     losses, gnorms = timer.values("loss"), timer.values("grad_norm")
     peak = torch.cuda.max_memory_allocated()
+    state_allocated = torch.cuda.memory_allocated() - base
     n_params = sum(t.numel() for t in leaves(params))
     del params, opt
     torch.cuda.empty_cache()
@@ -3120,7 +3153,10 @@ def train_full(out):
         "model_flops_share_fp32": model_flops / (median / 1e3) / roofline.H100_FP32_FLOPS,
         "model_flops_share_fp32x3": model_flops / (median / 1e3) / roofline.H100_FP32X3_FLOPS,
         "max_memory_allocated": peak, "allocated_before": base, "wall_s": wall,
-        "card": card_smi(),
+        "state_allocated": state_allocated, "card": card_smi(),
+        # the first step's op count, for phase 6d
+        "count_flops": timer.counter.stats.flops, "count_bytes": timer.counter.stats.mem_bytes,
+        "count_ops": dict(timer.counter.ops),
     }
     log(f"lm train {TRAIN_ARCH} ({n_params} params, {cfg.optimizer}, remat {cfg.remat}), "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: losses {losses}, grad norms {gnorms}; "
@@ -3330,6 +3366,179 @@ def trace_train(report):
         torch.cuda.empty_cache()
 
 
+#: phase 6d, the dry run: the cell counted on ``meta`` on both production
+#: meshes (the CPU tests and sweep count the others), and the step held
+#: against the card: phase 6c's own (stablelm-3b, float32, ``adamw``,
+#: remat, 1 x 4,096 tokens). The step's parameters and optimizer state
+#: must take within DRYRUN_ALLOC_TOL of the bytes the sharding specs give
+#: a one-shard mesh
+DRYRUN_CELLS = (("stablelm-3b", "train_4k"),)
+DRYRUN_STEP_SHAPE = {"kind": "train", "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH}
+DRYRUN_ALLOC_TOL = 0.01
+
+
+def dryrun_cells(out):
+    """Phase 6d (a): ``dryrun.run_cell`` for ``DRYRUN_CELLS`` on both
+    production meshes, each (arch, shape) counted once."""
+    from repro_torch.launch import dryrun
+
+    counts, recs = {}, []
+    out["cells"] = recs
+    for arch, shape in DRYRUN_CELLS:
+        for multi in (False, True):
+            rec = dryrun.run_cell(arch, shape, multi, counts)
+            recs.append(rec)
+            log(f"dry run {arch}/{shape}/{rec['mesh']}: {rec['status']} in {rec['total_s']} s "
+                f"(count {rec.get('compile_s')} s); hlo_stats {rec.get('hlo_stats')}; "
+                f"analytic bytes/device {rec.get('analytic_bytes_per_device')}")
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {arch}/{shape}/{rec['mesh']}: {rec.get('error')}")
+
+
+def dryrun_step(out, train):
+    """Phase 6d (b): the op count of phase 6c's step on ``meta`` against
+    the same count over the first step of 6c's run on the card (FLOPs and
+    bytes exactly), the specs' bytes on a one-shard mesh against the
+    memory that run's parameters and optimizer state took, and the run's
+    median step against the bound of the count on the H100's peaks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.hlo_analysis import OpCounter
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.optim import abstract_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    full = train.get("full")
+    if not full or "count_flops" not in full:
+        raise AssertionError("dry run: phase 6c left no counted step")
+    cfg = get_config(TRAIN_ARCH)
+    rec = out["step"] = {"arch": TRAIN_ARCH, "shape": DRYRUN_STEP_SHAPE, "card": card_smi()}
+    mp = M.abstract_params(cfg, torch.float32)
+    mo = abstract_opt_state(mp, cfg.optimizer)
+    mb = M.input_specs(cfg, DRYRUN_STEP_SHAPE)
+    t0 = time.perf_counter()
+    with OpCounter(record_ops=True) as meta:
+        make_train_step(cfg, lr=TRAIN_LR, device="meta")(mp, mo, mb)
+    rec["meta_count_s"] = time.perf_counter() - t0
+    mesh = make_smoke_mesh("cuda")
+    ps = SH.param_specs(cfg, mesh, mp)
+    analytic = (dryrun.tree_bytes_per_device(mp, ps, mesh)
+                + dryrun.tree_bytes_per_device(mo, SH.opt_specs(cfg, mesh, mo, ps), mesh))
+    allocated = full["state_allocated"]
+    flops, nbytes = meta.stats.flops, meta.stats.mem_bytes
+    bound_s = max(flops / roofline.H100_FP32_FLOPS, nbytes / roofline.H100_HBM_BW)
+    median = full["step_ms_median"]
+    card_ops = full["count_ops"]
+    ops_apart = {k: (meta.ops.get(k), card_ops.get(k)) for k in set(meta.ops) | set(card_ops)
+                 if meta.ops.get(k) != card_ops.get(k)}
+    rec.update({
+        "meta_flops": flops, "meta_bytes": nbytes, "card_flops": full["count_flops"],
+        "card_bytes": full["count_bytes"], "ops_dispatched": sum(card_ops.values()),
+        "ops_apart": {k: list(v) for k, v in ops_apart.items()},
+        "analytic_bytes": analytic, "allocated_bytes": allocated,
+        "batch_bytes": dryrun.tree_bytes_per_device(mb, SH.batch_specs(mesh, mb), mesh),
+        "allocated_rel_err": abs(analytic - allocated) / allocated,
+        "step_ms_median": median, "bound_ms": bound_s * 1e3,
+        "bound_by": "operations" if flops / roofline.H100_FP32_FLOPS >= nbytes / roofline.H100_HBM_BW
+        else "bytes",
+        "bound_share": bound_s * 1e3 / median,
+    })
+    log(f"dry-run step {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ}: meta count {flops} FLOPs, "
+        f"{nbytes} bytes ({rec['meta_count_s']:.1f} s); 6c's first step on the card "
+        f"{full['count_flops']} FLOPs, {full['count_bytes']} bytes over {rec['ops_dispatched']} "
+        f"ops; ops apart {ops_apart}; specs' bytes {analytic:.0f} against {allocated} allocated "
+        f"after 6c's run ({rec['allocated_rel_err']:.2e}); 6c's median step {median:.3f} ms, "
+        f"bound {rec['bound_ms']:.3f} ms by {rec['bound_by']} (share {rec['bound_share']:.4f})")
+    if (full["count_flops"], full["count_bytes"]) != (flops, nbytes):
+        raise AssertionError(f"dry run: the card's count differs from meta's; ops apart "
+                             f"{ops_apart}")
+    if rec["allocated_rel_err"] > DRYRUN_ALLOC_TOL:
+        raise AssertionError(f"dry run: specs' bytes {analytic} against {allocated} allocated")
+    if median < rec["bound_ms"]:
+        raise AssertionError(f"dry run: a step of {median:.3f} ms beats its bound of "
+                             f"{rec['bound_ms']:.3f} ms: the count is wrong")
+
+
+def dryrun_db_plane(out):
+    """Phase 6d (c): the dry run's ``--db-plane`` at 16 x 16: the data
+    plane on a 16-shard ``DataMesh`` of the card at the reference's 64 M
+    rows, its record written by the CLI and validated."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.db_plane import validate_db_plane_record
+
+    t0 = time.perf_counter()
+    dryrun.main(["--db-plane"])
+    rec = next(r for r in dryrun.load_results()
+               if r["arch"] == "graftdb-dataplane" and r["mesh"] == "16x16")
+    out["db_plane"] = validate_db_plane_record(rec)
+    out["db_plane"]["wall_s"] = time.perf_counter() - t0
+    log(f"dry-run db plane 16x16: valid, {rec['data_shards']} shards, {rec['rows']} rows; "
+        f"{rec['hlo_stats']}; {out['db_plane']['wall_s']:.1f} s")
+
+
+def dryrun_phase(report):
+    """Phase 6d: the dry-run tooling. Launch counts are reset before it
+    and read after it: only the db plane's shard-local chains launch a
+    kernel (B1)."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    out = report["dryrun"] = {}
+    _build.reset_launch_counts()
+    dryrun_cells(out)
+    dryrun_step(out, report.get("train", {}))
+    dryrun_db_plane(out)
+    launches = _build.launch_counts()
+    report["launches"]["dryrun"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launches in the dry-run phase: {launches}; phase {out['seconds']:.1f} s")
+    if not launches.get("fused_chain"):
+        raise AssertionError(f"dry run: the db plane's chains launched no B1: {launches}")
+
+
+def example_main(name):
+    """The ``main`` of ``examples/<name>.py``."""
+    import runpy
+
+    return runpy.run_path(str(ROOT / "examples" / f"{name}.py"))["main"]
+
+
+def examples_phase(report):
+    """Phase 8: the two example twins on the card, each with the launch
+    counts reset before it and read after it. The quickstart's Q_B must
+    match the port's reference executor and B1 must launch; the serving
+    twin (a host simulator) must print its lines and launch nothing."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import _build
+
+    out = report["examples"] = {}
+    for name in ("quickstart_torch", "serve_folding_torch"):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            example_main(name)([])
+        launches = _build.launch_counts()
+        lines = text.getvalue().splitlines()
+        out[name] = {"lines": lines, "launches": launches, "wall_s": time.perf_counter() - t0}
+        report["launches"][name] = launches
+        log(f"example {name}: {out[name]['wall_s']:.1f} s; launches of B1-B4 "
+            f"{ {k: launches.get(k, 0) for k in MAIN_KERNELS} }; "
+            + " | ".join(line for line in lines[:8] if line))
+    qs, sf = out["quickstart_torch"], out["serve_folding_torch"]
+    if "Q_B result matches reference executor: True" not in qs["lines"]:
+        raise AssertionError(f"quickstart: {qs['lines']}")
+    if not qs["launches"].get("fused_chain"):
+        raise AssertionError(f"quickstart: B1 did not launch: {qs['launches']}")
+    if any(sf["launches"].values()) or not any(x.startswith("folding :") for x in sf["lines"]):
+        raise AssertionError(f"serving twin: {sf}")
+
+
 def card_smi():
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     return subprocess.run(
@@ -3360,6 +3569,8 @@ def main():
     rows += kernel_ops(report)
     lm_phase(report)
     train_phase(report)
+    dryrun_phase(report)
+    examples_phase(report)
     trace_launch_path(report)
     trace_mesh(report)
     trace_seg_passes(report)

@@ -1,0 +1,458 @@
+"""Multi-pod dry run: count every (architecture x input shape) on the
+production meshes and record its per-device compute, memory and
+collective statistics.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-3b --shape train_4k --multi-pod both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --db-plane
+
+A port of the reference's ``launch/dryrun.py``, with its CLI, its
+resumable results file and its record keys. The reference lowers and
+compiles each cell under ``NamedSharding``s on 256 or 512 forced host
+devices and reads XLA's analyses and compiled HLO. The port has no such
+compiler, so:
+
+* **No devices.** Parameters, optimizer state, batch and cache are
+  ``meta`` tensors (``abstract_params``, ``abstract_opt_state``,
+  ``input_specs``, ``abstract_cache``), and the step (the train step,
+  prefill, or one decode step at position ``seq_len - 1``) runs on them
+  under ``hlo_analysis.OpCounter``, which counts FLOPs and unfused HBM
+  bytes of the global program. Each layer group is counted at one
+  repetition and at two, and the count extrapolated to the model's
+  depth (:func:`count_cell`): exact, since the repetitions are
+  shape-identical, and the counterpart of the analyzer's loop trips.
+* **Per device by division.** ``flops_per_device`` and
+  ``mem_bytes_per_device`` are the global counts over the mesh's
+  devices: compute that the specs' divisibility fallbacks replicate is
+  not in them. The global count does not depend on the mesh, so ``main``
+  counts each (arch, shape) once for both meshes.
+* **Collectives modelled from the specs** (:func:`collective_model`),
+  not read from a compiled program.
+* ``analytic_bytes_per_device`` is the reference's formula over the
+  port's specs (``sharding``): exact. ``memory_analysis`` is
+  "unavailable", as the reference records it where the backend has none;
+  ``cost_analysis`` holds the global counted ``flops`` and
+  ``bytes accessed``; ``hlo_bytes`` is None (no HLO text); ``lower_s``
+  is the seconds taken to build the abstract trees and specs,
+  ``compile_s`` those of the count.
+
+Results go to benchmarks/results/dryrun_torch.json, a file of the port's
+own, so that the reference's records are never overwritten. A cell that
+cannot run on ``meta`` (an op that reads a value) is recorded with
+``status: fail`` and its error, as the reference records its failures.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from ..configs import SHAPES, cells, get_config
+from ..models import model as M
+from ..models.layers import QCHUNK_THRESHOLD
+from ..train.optim import abstract_opt_state
+from ..train.train_step import make_train_step
+from . import sharding as SH
+from .hlo_analysis import OpCounter, _coll_traffic
+from .mesh import DataMesh, data_axes, make_production_mesh
+
+RESULTS = Path(__file__).resolve().parents[3] / "benchmarks" / "results" / "dryrun_torch.json"
+
+#: the loss's chunk of tokens (``models.model.loss_fn``)
+LOSS_CHUNK = 1024
+
+#: products whose weight's contracted input dim ('model'-sharded heads,
+#: d_ff, recurrence or RWKV channels) leaves a partial sum per 'model'
+#: shard, and whose output dim is split over the data axes. Values: the
+#: contracted dims of the leaf (without the stack dim), by its rank.
+ROW_PARALLEL = {
+    "wo": {3: (0, 1)},
+    "cwo": {3: (0, 1)},
+    "w_down": {2: (0,), 3: (1,)},
+    "shared_down": {2: (0,)},
+    "w_out": {2: (0,)},
+    "w_o": {2: (0,)},
+}
+
+
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _n_data(mesh) -> int:
+    return SH._axsize(mesh, data_axes(mesh))
+
+
+def tree_bytes_per_device(abstract, specs, mesh) -> float:
+    """Analytic bytes/device of a tree given its specs (the reference's
+    ``_tree_bytes_per_device``)."""
+    total = 0.0
+    for (_, a), (_, sh) in zip(M.tree_leaves_with_path(abstract),
+                               M.tree_leaves_with_path(SH.to_shardings(mesh, specs))):
+        total += math.prod(sh.shard_shape(tuple(a.shape))) * a.element_size()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The global count
+# ---------------------------------------------------------------------------
+
+
+def _abstract_inputs(cfg, shape):
+    """(params, opt_state or None, batch, cache or None) as ``meta``
+    tensors, bf16 parameters as the reference's dry run takes them."""
+    params = M.abstract_params(cfg, torch.bfloat16)
+    batch = M.input_specs(cfg, shape)
+    opt = abstract_opt_state(params, cfg.optimizer) if shape["kind"] == "train" else None
+    cache = (M.abstract_cache(cfg, shape["global_batch"], shape["seq_len"])
+             if shape["kind"] == "decode" else None)
+    return params, opt, batch, cache
+
+
+def count_step(cfg, shape):
+    """The ``OpCounter`` of one step of ``cfg`` at ``shape`` on ``meta``."""
+    params, opt, batch, cache = _abstract_inputs(cfg, shape)
+    kind = shape["kind"]
+    with OpCounter() as counter:
+        if kind == "train":
+            make_train_step(cfg, device="meta")(params, opt, batch)
+        elif kind == "prefill":
+            with torch.no_grad():
+                M.prefill(cfg, params, batch)
+        else:
+            with torch.no_grad():
+                M.decode_step(cfg, params, cache, batch["token"], shape["seq_len"] - 1)
+    return counter
+
+
+def _depth_knobs(cfg):
+    """[(config field, repetitions of the deepest group it sets, a setter
+    from repetitions to the field's value)] of the layer stacks that have
+    more than two repetitions: the decoder's main group and the encoder."""
+    knobs = []
+    groups = M.layer_groups(cfg)
+    period = len(cfg.block_pattern or ("attn",))
+    rem = cfg.n_layers - groups[0][1] * period
+    if groups[0][1] > 2:
+        knobs.append(("n_layers", groups[0][1], lambda k: k * period + rem))
+    if cfg.n_encoder_layers > 2:
+        knobs.append(("n_encoder_layers", cfg.n_encoder_layers, lambda k: k))
+    return knobs
+
+
+def count_cell(cfg, shape) -> dict:
+    """Global FLOPs and HBM bytes of one step. Each layer stack of n > 2
+    repetitions is counted at 1 and 2 (the others at 1) and the count
+    extrapolated: F(n) = F(1) + (n - 1) (F(2) - F(1)) for each stack, in
+    exact integers."""
+    knobs = _depth_knobs(cfg)
+    if not knobs:
+        st = count_step(cfg, shape).stats
+        return {"flops": st.flops, "bytes": st.mem_bytes, "depth_extrapolated": False}
+    base = dataclasses.replace(cfg, **{f: set_(1) for f, _, set_ in knobs})
+    f1 = count_step(base, shape).stats
+    flops, nbytes = f1.flops, f1.mem_bytes
+    for field_, n, set_ in knobs:
+        f2 = count_step(dataclasses.replace(base, **{field_: set_(2)}), shape).stats
+        flops += (n - 1) * (f2.flops - f1.flops)
+        nbytes += (n - 1) * (f2.mem_bytes - f1.mem_bytes)
+    return {"flops": flops, "bytes": nbytes, "depth_extrapolated": True}
+
+
+# ---------------------------------------------------------------------------
+# The collective model
+# ---------------------------------------------------------------------------
+
+
+def collective_model(cfg, shape, mesh, params, pspecs):
+    """Per-device collective traffic of one step on ``mesh``, modelled from
+    the specs (not read from a compiled program) after the program that
+    XLA's partitioner makes of the reference's step for host devices, which
+    is what the reference's dry run records. n_d is the size of the data
+    axes, n_m of 'model', B_d = B / n_d rows a device (B where the batch
+    does not divide), L a leaf's bytes; each collective's traffic is its
+    result's bytes times the reference analyzer's ring factor.
+
+    Train and prefill, where ``act_spec`` splits the sequence over 'model'
+    (sequence parallelism), so a device's activations outweigh a weight:
+
+    * each weight leaf is gathered whole, over 'model' and then over the
+      data axes, once for prefill and twice for train (forward, and the
+      rematerialized backward); expert-stacked leaves keep their experts
+      on 'model' and are gathered over the data axes only (L / n_m);
+    * each attention layer of at most ``QCHUNK_THRESHOLD`` queries
+      gathers its K and V [B_d, S, KV, dh] over 'model' (S the keys'
+      length); train all-reduces dK and dV. A longer one runs query
+      chunks against the keys' shards: it gathers its queries
+      Q [B_d, S, H, dh] over 'model' and all-reduces each chunk's partial
+      output (Q's bytes in all) and its two float32 softmax statistics
+      [B_d, H, S]; train gathers Q four times, all-reduces the outputs
+      three times and the statistics five times;
+    * each MoE layer gathers its tokens [B_d, S, D] over 'model' for the
+      dispatch and all-reduces the top-k outputs [B_d, S k, D] over
+      'model' for the combine; train gathers once more and all-reduces
+      the dispatch's gradient [B_d, S, D];
+    * train past ``LOSS_CHUNK`` tokens gathers the final hidden states
+      [B_d, S, D] over 'model' twice for the loss's chunks and all-reduces
+      them once;
+    * train all-reduces each leaf's gradient over the data axes and over
+      'model', whole (experts: L / n_m, over the data axes), as XLA emits
+      it for host devices, a reduce-scatter being an all-reduce and a
+      slice there.
+
+    Decode, and any step whose sequence stays whole on 'model' (tensor
+    parallelism):
+
+    * each weight leaf that the data axes split is gathered over them
+      (L / its 'model' shards), but in decode not a dense one whose split
+      dim is the product's output (``ROW_PARALLEL``, the embedding),
+      where the few rows of activations move instead, which is not
+      counted, nor one that prefill ran (the encoder, the memory's K and
+      V projections);
+    * an all-reduce over 'model' of the block output [B_d, S, D] (S = 1
+      for decode; the encoder's S / 4 for its own blocks) after each
+      ``ROW_PARALLEL`` product whose contracted dim 'model' splits,
+      twice in train; train all-reduces each gradient over the data axes;
+    * each MoE layer whose experts 'model' splits all-reduces the top-k
+      outputs [B_d, S k, D] over 'model'.
+
+    Not modelled: the activation traffic of the RG-LRU and RWKV time-mix
+    blocks beyond their weights (their chunk scans' all-to-alls and state
+    gathers), and small reductions (the loss, norms of a few values).
+    ``test_collective_model_against_xla`` holds the model against XLA's
+    program of the reference's smoke steps for two architectures on a
+    2 x 2 mesh; ``tests/_xla_programs.py --table`` reads all ten.
+
+    Returns (traffic bytes by kind, count by kind, {kind: {"count",
+    "bytes"}} with each collective's result bytes, as the reference's
+    ``parse_collectives`` records them)."""
+    kind = shape["kind"]
+    train = kind == "train"
+    passes = 2 if train else 1
+    dp = data_axes(mesh)
+    n_d, n_m = _n_data(mesh), mesh.shape["model"]
+    B = shape["global_batch"]
+    B_d = B // n_d if B % n_d == 0 else B
+    S = 1 if kind == "decode" else shape["seq_len"]
+    S_enc = max(shape["seq_len"] // 4, 1)
+    act = params["embed"].element_size()
+    D = cfg.d_model
+    aspec = SH.act_spec(cfg, mesh, S) if kind != "decode" else None
+    seq_sharded = n_m > 1 and aspec is not None and "model" in aspec
+    traffic, count, result = {}, {}, {}
+
+    def add(k, n, res, group):
+        if group < 2:
+            return
+        traffic[k] = traffic.get(k, 0.0) + n * _coll_traffic(k, res, group)
+        count[k] = count.get(k, 0) + n
+        ent = result.setdefault(k, {"count": 0, "bytes": 0})
+        ent["count"] += n
+        ent["bytes"] += int(n * res)
+
+    if train and seq_sharded and S > LOSS_CHUNK:
+        # the loss's chunks of the final hidden states [B_d, S, D]
+        add("all-gather", 2, B_d * S * D * act, n_m)
+        add("all-reduce", 1, B_d * S * D * act, n_m)
+    shardings = dict(M.tree_leaves_with_path(SH.to_shardings(mesh, pspecs)))
+    flat = dict(M.tree_leaves_with_path(params))
+    for key, leaf in flat.items():
+        path = key.split("/")
+        name = path[-1]
+        encoder = path[0] in ("enc_groups", "enc_final_norm")
+        if kind == "decode" and (encoder or name in ("cwk", "cwv")):
+            continue  # the encoder and the memory's K and V ran at prefill
+        sh = shardings[key]
+        L = leaf.numel() * leaf.element_size()
+        stacked = path[0] in ("groups", "enc_groups")
+        off = 1 if stacked else 0
+        layers = leaf.shape[0] if stacked else 1
+        expert = name in ("w_gate", "w_up", "w_down") and leaf.dim() - off == 3
+        s_d, s_m = sh.shards_over(dp), sh.shards_over(("model",))
+        contracted = ROW_PARALLEL.get(name, {}).get(leaf.dim() - off, ())
+        if seq_sharded and not expert:
+            add("all-gather", passes, L / s_d, s_m)
+            add("all-gather", passes, L, s_d)
+            if train:
+                add("all-reduce", 1, L, n_d)
+                add("all-reduce", 1, L, n_m)
+        else:
+            if not (kind == "decode" and not expert and (contracted or name == "embed")):
+                add("all-gather", passes, L / s_m, s_d)
+            if train:
+                add("all-reduce", 1, L / s_m, n_d)
+        if not seq_sharded and any("model" in sh.axes(off + d) for d in contracted):
+            out = B_d * (S_enc if encoder else S) * D * act
+            add("all-reduce", layers * passes, out, n_m)
+        q_len = S_enc if encoder else S
+        if seq_sharded and name in ("wk", "cwk") and q_len > QCHUNK_THRESHOLD:
+            wq = flat[key[: -len(name)] + name.replace("k", "q")]
+            q = B_d * q_len * math.prod(wq.shape[-2:]) * act
+            stats = B_d * wq.shape[-2] * q_len * 4
+            add("all-gather", layers * (4 if train else 1), q, n_m)
+            add("all-reduce", layers * (3 if train else 1), q, n_m)
+            add("all-reduce", layers * (5 if train else 2), stats, n_m)
+        elif seq_sharded and name in ("wk", "cwk"):
+            kv = B_d * (S_enc if encoder or name == "cwk" else S) * math.prod(leaf.shape[-2:]) * act
+            add("all-gather", 2 * layers * passes, kv, n_m)
+            if train:
+                add("all-reduce", 2 * layers, kv, n_m)
+        if name == "router" and "model" in shardings["/".join(path[:-1] + ["w_gate"])].axes(off):
+            tokens = B_d * S * D * act
+            add("all-reduce", layers * passes, cfg.moe.top_k * tokens, n_m)
+            if seq_sharded:
+                add("all-gather", layers * (3 if train else 1), tokens, n_m)
+                if train:
+                    add("all-reduce", layers, tokens, n_m)
+    return traffic, count, result
+
+
+# ---------------------------------------------------------------------------
+# Records
+# ---------------------------------------------------------------------------
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool, counts: dict = None) -> dict:
+    """One cell's record. ``counts`` maps (arch, shape) to
+    :func:`count_cell`'s result, which does not depend on the mesh: a cell
+    found there is not counted again, and one counted here is added."""
+    counts = {} if counts is None else counts
+    t0 = time.time()
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod), "status": "ok"}
+    try:
+        cfg = get_config(arch)
+        shape = SHAPES[shape_name]
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        params, opt, batch, cache = _abstract_inputs(cfg, shape)
+        pspecs = SH.param_specs(cfg, mesh, params)
+        args_bytes = tree_bytes_per_device(params, pspecs, mesh)
+        if opt is not None:
+            args_bytes += tree_bytes_per_device(opt, SH.opt_specs(cfg, mesh, opt, pspecs), mesh)
+        if shape["kind"] == "decode":
+            args_bytes += tree_bytes_per_device(cache, SH.cache_specs(cfg, mesh, cache), mesh)
+        else:
+            args_bytes += tree_bytes_per_device(batch, SH.batch_specs(mesh, batch), mesh)
+        traffic, ccount, collectives = collective_model(cfg, shape, mesh, params, pspecs)
+        t1 = time.time()
+        if (arch, shape_name) not in counts:
+            counts[arch, shape_name] = count_cell(cfg, shape)
+        counted = counts[arch, shape_name]
+        t2 = time.time()
+        rec["lower_s"] = round(t1 - t0, 1)
+        rec["compile_s"] = round(t2 - t1, 1)
+        rec["memory_analysis"] = "unavailable: the port has no compiler; see analytic_bytes_per_device"
+        rec["analytic_bytes_per_device"] = int(args_bytes)
+        rec["cost_analysis"] = {"flops": float(counted["flops"]),
+                                "bytes accessed": float(counted["bytes"])}
+        rec["collectives"] = collectives
+        rec["hlo_bytes"] = None
+        rec["depth_extrapolated"] = counted["depth_extrapolated"]
+        n_chips = mesh.size
+        rec["hlo_stats"] = {
+            "flops_per_device": counted["flops"] / n_chips,
+            "mem_bytes_per_device": counted["bytes"] / n_chips,
+            "coll_bytes_per_device": traffic,
+            "coll_count": ccount,
+        }
+    except Exception as e:  # recorded, not swallowed: the record says fail
+        rec["status"] = "fail"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    rec["total_s"] = round(time.time() - t0, 1)
+    return rec
+
+
+def load_results() -> list:
+    if RESULTS.exists():
+        return json.loads(RESULTS.read_text())
+    return []
+
+
+def save_results(res: list) -> None:
+    RESULTS.parent.mkdir(parents=True, exist_ok=True)
+    RESULTS.write_text(json.dumps(res, indent=1))
+
+
+def run_db_plane(multi_pod: bool, device: str = "cuda", rows: int = 1 << 26) -> dict:
+    """The distributed GraftDB data plane (the bucketed-exchange hash
+    join, the summed aggregate and the shard-local fused chain) on a
+    ``DataMesh`` of the production mesh's data-axis size (16, or 32 over
+    two pods) on ``device``, at the reference's 64 M rows. Delegates to
+    ``launch.db_plane``."""
+    from .db_plane import db_plane_record
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    rec = db_plane_record(DataMesh(_n_data(mesh), device), rows=rows)
+    rec["mesh"] = mesh_name(multi_pod)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", choices=["on", "off", "both"], default="off")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--redo", action="store_true")
+    ap.add_argument("--db-plane", action="store_true")
+    args = ap.parse_args(argv)
+    pods = {"on": [True], "off": [False], "both": [False, True]}[args.multi_pod]
+
+    if args.db_plane:
+        from .db_plane import validate_db_plane_record
+
+        results = load_results()
+        for mp in pods:
+            rec = run_db_plane(mp)
+            key = (rec["arch"], rec["shape"], rec["mesh"])
+            results = [r for r in results if (r["arch"], r["shape"], r["mesh"]) != key]
+            results.append(rec)
+            save_results(results)
+            try:
+                validate_db_plane_record(rec)
+                valid = "valid"
+            except ValueError as e:
+                valid = f"INVALID ({e})"
+            print(f"db-plane {rec['mesh']}: {rec['status']} ({valid}) "
+                  f"coll={rec.get('hlo_stats', {}).get('coll_count')} "
+                  f"chain={rec.get('chain')}", flush=True)
+        return
+
+    todo = []
+    for a, s in cells():
+        if args.arch and a != args.arch:
+            continue
+        if args.shape and s != args.shape:
+            continue
+        for mp in pods:
+            todo.append((a, s, mp))
+
+    results = load_results()
+    done = {(r["arch"], r["shape"], r["mesh"]) for r in results if r["status"] == "ok"}
+    counts = {}  # (arch, shape) -> count_cell's result, for both meshes
+    for a, s, mp in todo:
+        key = (a, s, mesh_name(mp))
+        if key in done and not args.redo:
+            print(f"skip {key} (cached)")
+            continue
+        print(f"=== dry-run {key} ===", flush=True)
+        rec = run_cell(a, s, mp, counts)
+        results = [r for r in results if (r["arch"], r["shape"], r["mesh"]) != key]
+        results.append(rec)
+        save_results(results)
+        print(
+            f"--> {rec['status']} lower={rec.get('lower_s')}s count={rec.get('compile_s')}s"
+            + (f" err={rec.get('error')}" if rec["status"] != "ok" else ""),
+            flush=True,
+        )
+
+
+if __name__ == "__main__":
+    main()

@@ -14,10 +14,17 @@ Shard p lives on ``cuda:(p mod torch.cuda.device_count())``, or on the
 CPU when the caller asks for it, so four shards on one card are four
 shards on ``cuda:0``; ``MeshPlan.stats()["devices"]`` names them.
 Building a CUDA mesh without a visible card raises.
+
+The reference's production meshes (16 x 16, and 2 x 16 x 16 over two
+pods) stand for 256 and 512 devices, which one card does not have:
+:func:`make_production_mesh` returns a device-less descriptor of them,
+:class:`ProductionMesh`, which the sharding rules and the dry run read
+(``shape`` and ``axis_names``) and a ``Session`` refuses.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import numpy as np
@@ -58,6 +65,31 @@ class DataMesh:
         return f"DataMesh({self.shape['data']}, devices={[str(r[0]) for r in self.devices]})"
 
 
+class ProductionMesh:
+    """A mesh without devices, the counterpart of JAX's ``AbstractMesh``:
+    ``shape`` ({axis: size}) and ``axis_names``, nothing else."""
+
+    def __init__(self, shape, axis_names):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"ProductionMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh as a descriptor: ('data', 'model')
+    = (16, 16), or ('pod', 'data', 'model') = (2, 16, 16) with
+    ``multi_pod``."""
+    if multi_pod:
+        return ProductionMesh((2, 16, 16), ("pod", "data", "model"))
+    return ProductionMesh((16, 16), ("data", "model"))
+
+
 def shard_devices(mesh) -> List[torch.device]:
     """The torch device of each data shard of ``mesh`` (a ``DataMesh`` or
     any mesh whose ``devices`` name torch devices), in shard order."""
@@ -85,7 +117,7 @@ def resolve_mesh(spec, device: str = "cuda"):
     ``device``'s kind; returned as it is), the string 'smoke' (one-shard
     mesh), or an int n (n-way data mesh). A mesh of CPU shards under a
     card session raises: its shards would move the card's work to the
-    CPU."""
+    CPU. So does a ``ProductionMesh``, which has no devices."""
     if spec is None:
         raise ValueError("mesh spec is None — nothing to resolve")
     if isinstance(spec, str):
@@ -94,6 +126,12 @@ def resolve_mesh(spec, device: str = "cuda"):
         raise ValueError(f"unknown mesh spec {spec!r}; expected 'smoke', an int, or a mesh")
     if isinstance(spec, int):
         return make_data_mesh(spec, device)
+    if isinstance(spec, ProductionMesh):
+        raise ValueError(
+            f"{spec!r} describes the reference's production mesh of {spec.size} devices "
+            "and holds none; a session needs a mesh of devices ('smoke', an int, or a "
+            "DataMesh)"
+        )
     if "data" not in getattr(spec, "axis_names", ()):
         raise ValueError(
             f"mesh {spec!r} has no 'data' axis — the engine shards state over 'data'"

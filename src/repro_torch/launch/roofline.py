@@ -5,11 +5,13 @@ the port's configs, so that a reference record gives the reference's
 dict, with the TPU v5e constants it is computed against. Beside them
 stand the H100's, which set a step on the card against its peak.
 
-Reads benchmarks/results/dryrun.json (written by the reference's
-launch/dryrun.py, which runs the trip-count-aware HLO analyzer; the file
-is absent until a dry run writes it, and ``main`` then raises
-FileNotFoundError, as the reference's does) and derives, per (arch x shape x
-mesh):
+Reads benchmarks/results/dryrun_torch.json, written by the port's
+``launch/dryrun.py`` (an op count on ``meta`` tensors, per device by
+division, collectives modelled from the sharding specs; the file is
+absent until a dry run writes it, and ``main`` then raises
+FileNotFoundError, as the reference's does), or with ``--results`` the
+reference's benchmarks/results/dryrun.json (its compiled HLO's
+trip-count-aware analysis), and derives, per (arch x shape x mesh):
 
   compute term    = HLO_FLOPs_per_device / peak_FLOP/s
   memory term     = HLO_bytes_per_device / HBM_bw
@@ -45,7 +47,7 @@ H100_HBM_BW = 3.35e12  # HBM3 bytes/s
 # TF32 products (hi*hi + hi*lo + lo*hi), a third of the TF32 rate
 H100_FP32X3_FLOPS = H100_TF32_FLOPS / 3
 
-RESULTS = Path(__file__).resolve().parents[3] / "benchmarks" / "results" / "dryrun.json"
+RESULTS = Path(__file__).resolve().parents[3] / "benchmarks" / "results" / "dryrun_torch.json"
 
 
 def model_flops_per_device(arch: str, shape_name: str, n_chips: int) -> float:

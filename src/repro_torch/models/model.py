@@ -369,12 +369,17 @@ def _run_groups(cfg, groups_params, patterns, x, *, causal, memory):
         kinds = _block_kinds(pattern)
         for pp in _unstack(gp, n_rep):
 
-            def period(xc, pp=pp):
+            # the group's kinds and pattern bound now: the backward's
+            # recomputation runs after the loop has moved to later groups
+            def period(xc, pp=pp, kinds=kinds, pattern=pattern):
                 for name, kind in zip(kinds, pattern):
                     xc = _block_apply(cfg, kind, pp[name], xc, causal=causal, memory=memory)
                 return xc
 
-            x = checkpoint(period, x, use_reentrant=False) if remat else period(x)
+            # the forward draws no random numbers, so no RNG state is kept
+            # for the recomputation (keeping it copies the card's state)
+            x = (checkpoint(period, x, use_reentrant=False, preserve_rng_state=False)
+                 if remat else period(x))
     return x
 
 

@@ -37,8 +37,12 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg) -> torch.Tensor:
 
     topw, topi = route(p, x, cfg)
 
-    # position-in-expert via cumulative count of earlier assignments
-    onehot = F.one_hot(topi, E).to(torch.int32)  # [B,S,K,E]
+    # position-in-expert via cumulative count of earlier assignments. The
+    # one-hot is a compare, not F.one_hot: that takes another path on each
+    # device (a scatter on the card, a checked scatter on the CPU, a
+    # compare on meta), so the op counter would count each differently
+    experts = torch.arange(E, dtype=topi.dtype, device=x.device)
+    onehot = (topi[..., None] == experts).to(torch.int32)  # [B,S,K,E]
     flat = onehot.reshape(B, S * K, E)
     pos_flat = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat  # count before slot
     pos = (pos_flat.reshape(B, S, K, E) * onehot).sum(-1)  # [B,S,K]

@@ -352,6 +352,19 @@ assert lm_compress.compress({"w": torch.ones(3)}, {"w": torch.zeros(3)})[0]["w"]
 assert set(lm_optim.abstract_opt_state(lm_model.abstract_params(lm_cfg))) == {"step", "master", "m", "v"}
 assert callable(lm_step.make_train_step(lm_cfg, device="cpu"))
 assert lm_roofline.model_flops_per_device("stablelm-3b", "train_4k", 256) > 0
+from repro_torch.launch import dryrun as lm_dryrun, hlo_analysis as lm_hlo, sharding as lm_sharding
+lm_rec = lm_dryrun.run_cell("stablelm-3b", "decode_32k", True)
+assert lm_rec["status"] == "ok" and lm_rec["hlo_stats"]["flops_per_device"] > 0, lm_rec
+assert lm_sharding.param_specs(lm_cfg, mesh.make_production_mesh(), lm_model.abstract_params(
+    lm_cfg))["embed"] == ("model", "data")
+assert lm_hlo.shape_bytes("bf16[4,8]") == 64
+import runpy
+from pathlib import Path
+lm_examples = Path(lm_dryrun.__file__).resolve().parents[3] / "examples"
+with contextlib.redirect_stdout(io.StringIO()) as lm_out:
+    runpy.run_path(str(lm_examples / "serve_folding_torch.py"))["main"](["--device", "cpu"])
+    assert runpy.run_path(str(lm_examples / "quickstart_torch.py"))["main"](["--device", "cpu"])
+assert "folding :" in lm_out.getvalue() and "matches reference executor: True" in lm_out.getvalue()
 leaked = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")

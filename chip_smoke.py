@@ -117,12 +117,38 @@ itself and drives ``graftdb_torch``. Phases:
    to a host gather, the TPC-H Q1 groups summed over width 4 within 1e-4
    of a float64 host sum, both with their event means, and the
    db-plane record at 2^23 rows;
+4e. closed loop (``repro_torch.launch.workload``, the twin of the
+   reference's ``examples/concurrent_workload.py``) on phase 4's database:
+   16 clients, each with one query outstanding, over
+   ``client_sequences(db, 16, 2, seed=3)`` (the example's 10 queries a
+   client cut to 2 for the phase's time on the card), through
+   ``run_closed_loop``: the example's 16,384-row morsels, the torch
+   backend on the card. On the work clock in the example's grid,
+   ``isolated``, ``graft`` and ``graft-4w8p`` (4 workers, 8 partitions;
+   the grid's ``qpipe_osp`` left out for the script's time, the CPU tests
+   hold it); on the card's wall clock, one worker, ``wall-isolated`` and
+   ``wall-graft``. Launch counts are reset before each leg and read
+   after it. Every leg completes its 32 queries; every result equals the
+   reference executor (rtol 1e-9; each distinct instance executed once,
+   on four threads)
+   and the first leg's result for the same client and position (rtol
+   1e-9: modes add float64 sums in other orders); B1 launches in each
+   graft leg. Each leg records its completions, clock seconds (virtual,
+   or real on the wall clock), throughput, median and P95 latency, wall
+   seconds, B1-B4 launches, fallback counters and the backend's host
+   seconds in ``probe_chain``, ``probe_visible``, ``probe``,
+   ``probe_visible_multi`` and ``_table_for``; graft's throughput and P95
+   over isolated's on each clock are recorded, not checked. Results go
+   to ``closed_loop`` in ``chip_smoke.json``;
 5. twins: the same workload at SF 0.1 on the card and on the CPU (plain
    versions), in the default and the opt-in configuration, the repeat
    trace with a cache whose small memory tier demotes artifacts to the
    disk tier and the chaos leg's ``FaultPlan``, in both configurations,
-   the burst trace with batch planning, and the workload on a four-shard
-   mesh must give identical results, statuses, counters, admission logs,
+   the burst trace with batch planning, the workload on a four-shard
+   mesh, and the closed loop (``client_sequences(tdb, 16, 2, seed=3)`` in
+   ``graft`` and ``graft-4w8p``: completions, the list of latencies,
+   counters, clock and results) must give identical results, statuses,
+   counters, admission logs,
    cohort plans, backend stats and virtual clocks (the mesh's
    ``mesh_stats()``, its shards' device names aside, and
    ``validate_mesh_plane`` records too, and the exchange of the orders'
@@ -209,11 +235,13 @@ itself and drives ``graftdb_torch``. Phases:
    (B1 launches in the db plane's chains). Results go to ``dryrun`` in
    ``chip_smoke.json``;
 8. the example twins, run before phase 7 so that the traces stay last:
-   ``examples/quickstart_torch.py`` and ``examples/serve_folding_torch.py``
-   on the card, each with launch counts reset before and read after it.
-   The quickstart's Q_B must match the reference executor and B1 must
-   launch (B1-B4's counts recorded); the serving twin, a host simulator,
-   must print its lines and launch no kernel. Results go to ``examples``;
+   ``examples/quickstart_torch.py``, ``examples/serve_folding_torch.py``
+   and ``examples/concurrent_workload_torch.py`` on the card, each with
+   launch counts reset before and read after it. The quickstart's Q_B
+   must match the reference executor and B1 must launch (B1-B4's counts
+   recorded); the serving twin, a host simulator, must print its lines
+   and launch no kernel; the closed-loop twin must print its grid's four
+   lines and launch B1. Results go to ``examples``;
 7. the device time per call of the fused chain (its replay and phase 3's
    two-stage chain with grants, filters and a sink), of the probes B2, B4
    and B3 (their replays), of B5 at 65,536 keys, of the four probes at one
@@ -2221,6 +2249,171 @@ def mesh_twin(tdb, tqs, report):
 
 
 # ---------------------------------------------------------------------------
+# the closed loop
+# ---------------------------------------------------------------------------
+
+#: phase 4e: the reference's closed-loop example (``examples/
+#: concurrent_workload.py``) at SF 1 on phase 4's database: 16 clients with
+#: one query outstanding each, ``client_sequences(db, 16, CLOSED_PER,
+#: seed=3)``; each client's 10 queries are cut to 2 for the phase's time on
+#: the card (the cut never goes to 1: a single burst is no closed loop)
+CLOSED_CLIENTS = 16
+CLOSED_PER = 2
+CLOSED_SEED = 3
+#: (label, mode, workers, partitions, wall clock): the example's grid on
+#: the work clock, then isolated and graft on the card's wall clock, which
+#: the config allows only for one worker. The grid's ``qpipe_osp`` leg is
+#: left out for the script's time: the work clock is the same on every
+#: device, and the CPU tests hold that leg against the reference
+CLOSED_LEGS = (
+    ("isolated", "isolated", 1, 1, False),
+    ("graft", "graft", 1, 1, False),
+    ("graft-4w8p", "graft", 4, 8, False),
+    ("wall-isolated", "isolated", 1, 1, True),
+    ("wall-graft", "graft", 1, 1, True),
+)
+#: threads that run the reference executor over the phase's instances
+#: (its NumPy work releases the interpreter lock for much of the time)
+CLOSED_REFEXEC_THREADS = 4
+#: the engine's calls whose host seconds each leg records (as phase 4 does)
+CLOSED_CALLS = ("probe_chain", "probe_visible", "probe", "probe_visible_multi", "_table_for")
+#: phase 5's closed-loop twin at ``TWIN_SCALE``: the grid points run on
+#: the card and on the CPU
+CLOSED_TWIN_LEGS = (("graft", 1, 1), ("graft", 4, 8))
+
+
+def instance_key(template, params):
+    return template, tuple(sorted(params.items()))
+
+
+def closed_leg(db, seqs, label, mode, workers, partitions, wall, timer):
+    """One closed-loop leg on the card: launch counts and engine timers
+    reset before it and read after it. Returns its record and its results
+    by ``(client, position)``."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import workload
+
+    timer.engine_times()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = workload.run_closed_loop(db, mode, seqs, wall=wall, workers=workers,
+                                 partitions=partitions, keep_results=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    engine = timer.engine_times()
+    c = r["counters"]
+    rec = {
+        "mode": mode, "workers": workers, "partitions": partitions,
+        "clock": "wall" if wall else "work",
+        "completed": r["completed"],
+        "elapsed_s": r["elapsed_s"],
+        "throughput_qph": r["throughput_qph"],
+        "median_latency_s": r["median_latency_s"],
+        "p95_latency_s": r["p95_latency_s"],
+        "latencies": r["latencies"],
+        "wall_s": wall_s,
+        "launches": {k: launches.get(k, 0) for k in MAIN_KERNELS},
+        "fallbacks": {k: int(v) for k, v in sorted(c.items()) if k.startswith("fallback_probes_")},
+        "engine": {k: engine[k] for k in CLOSED_CALLS},
+    }
+    log(f"closed leg {label}: {rec['completed']} done; {rec['clock']} clock {r['elapsed_s']!r} s, "
+        f"{r['throughput_qph']!r} q/h, median {r['median_latency_s']!r} s, p95 "
+        f"{r['p95_latency_s']!r} s; wall {wall_s:.3f} s; launches {rec['launches']}; fallbacks "
+        f"{rec['fallbacks']}; host s " + ", ".join(
+            f"{k} {v['seconds']:.4f} ({v['calls']})" for k, v in rec["engine"].items()))
+    return rec, r["results"]
+
+
+def closed_loop_phase(db, report):
+    """Phase 4e: the closed loop at SF 1 on the card, in the legs of
+    ``CLOSED_LEGS``. Checks: every leg completes every query; every result
+    equals the reference executor (rtol 1e-9, each distinct instance
+    executed once) and the first leg's result for the same client and
+    position (rtol 1e-9: modes add float64 sums in other orders); B1
+    launches in each graft leg. The ratios of graft's throughput and P95
+    latency to isolated's on each clock are recorded, not checked."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import workload
+    from repro_torch.relational import queries, refexec
+
+    t0 = time.perf_counter()
+    seqs = workload.client_sequences(db, CLOSED_CLIENTS, CLOSED_PER, seed=CLOSED_SEED)
+    n = CLOSED_CLIENTS * CLOSED_PER
+    instances = {instance_key(t, p): (t, p) for seq in seqs for t, p in seq}
+    plans = [queries.make_query(db, t, p).plan for t, p in instances.values()]
+    with ThreadPoolExecutor(CLOSED_REFEXEC_THREADS) as pool:
+        expected = dict(zip(instances, pool.map(lambda plan: refexec.execute(db, plan), plans)))
+    out = report["closed_loop"] = {
+        "clients": CLOSED_CLIENTS, "per_client": CLOSED_PER, "seed": CLOSED_SEED,
+        "instances": len(expected), "reference_executor_s": time.perf_counter() - t0, "legs": {}}
+    log(f"closed loop: {CLOSED_CLIENTS} clients x {CLOSED_PER} queries, "
+        f"{[t for seq in seqs for t, _ in seq]}; {len(expected)} distinct instances, reference "
+        f"executor {out['reference_executor_s']:.1f} s")
+    timer = Recorder(replay=False)
+    first = None
+    try:
+        for label, mode, workers, partitions, wall in CLOSED_LEGS:
+            rec, results = closed_leg(db, seqs, label, mode, workers, partitions, wall, timer)
+            out["legs"][label] = rec
+            if rec["completed"] != n or sorted(results) != sorted(
+                    (c, i) for c in range(CLOSED_CLIENTS) for i in range(CLOSED_PER)):
+                raise AssertionError(f"closed {label}: {rec['completed']} of {n} completed")
+            slots = sorted(results)
+            got = [results[s][2] for s in slots]
+            rec["max_rel_err"] = check_results(
+                f"closed {label}", got,
+                [expected[instance_key(*results[s][:2])] for s in slots])
+            if first is None:
+                first = got
+            else:
+                check_results(f"closed {label} vs {CLOSED_LEGS[0][0]}", got, first)
+            if mode == "graft" and not rec["launches"]["fused_chain"]:
+                raise AssertionError(f"closed {label}: B1 did not launch: {rec['launches']}")
+    finally:
+        timer.restore()
+    legs = out["legs"]
+    out["graft_over_isolated"] = {
+        clock: {"throughput": legs[g]["throughput_qph"] / legs[i]["throughput_qph"],
+                "p95_latency": legs[g]["p95_latency_s"] / legs[i]["p95_latency_s"]}
+        for clock, g, i in (("work", "graft", "isolated"), ("wall", "wall-graft", "wall-isolated"))}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"closed loop: every result == refexec and the {CLOSED_LEGS[0][0]} leg's (rtol 1e-9); "
+        f"graft / isolated {out['graft_over_isolated']}; phase {out['seconds']:.1f} s")
+
+
+def closed_twin(tdb, report):
+    """Phase 5's closed-loop twin: ``client_sequences(tdb, 16, 2, seed=3)``
+    at each grid point of ``CLOSED_TWIN_LEGS`` on the card and on the CPU
+    must give identical runs: completions, the list of latencies, counters,
+    clock, and each result (by client and position) bit for bit."""
+    from repro_torch.launch import workload
+
+    seqs = workload.client_sequences(tdb, CLOSED_CLIENTS, CLOSED_PER, seed=CLOSED_SEED)
+    out = report["twin"]["closed_loop"] = {}
+    for mode, workers, partitions in CLOSED_TWIN_LEGS:
+        label = mode if workers == 1 else f"{mode}-{workers}w{partitions}p"
+        gpu, cpu = (workload.run_closed_loop(tdb, mode, seqs, workers=workers,
+                                             partitions=partitions, device=dev, keep_results=True)
+                    for dev in ("cuda", "cpu"))
+        for k in ("completed", "elapsed_s", "latencies", "counters"):
+            if gpu[k] != cpu[k]:
+                raise AssertionError(f"twin closed {label}: {k} differ: {gpu[k]} != {cpu[k]}")
+        if sorted(gpu["results"]) != sorted(cpu["results"]):
+            raise AssertionError(f"twin closed {label}: completed slots differ")
+        slots = sorted(gpu["results"])
+        same_results(f"twin closed {label}", [gpu["results"][s][2] for s in slots],
+                     [cpu["results"][s][2] for s in slots])
+        out[label] = {"completed": gpu["completed"], "elapsed_s": gpu["elapsed_s"],
+                      "chain_launches": int(gpu["counters"]["kernel_chain_launches"])}
+    log(f"twin closed loop SF {TWIN_SCALE}: cuda == cpu (completions, latencies, counters, "
+        f"clock, results) {out}")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2393,7 +2586,11 @@ def smoke(report):
 
     # 4d. the mesh plane at the full scale
     mesh_phase(db, qs, expected, kept["graft"], report)
-    del db, kept
+    del kept
+
+    # 4e. the closed loop at the full scale
+    closed_loop_phase(db, report)
+    del db
 
     # 5. twins: card and CPU give identical runs
     t0 = time.perf_counter()
@@ -2416,8 +2613,10 @@ def smoke(report):
                 raise AssertionError(f"twin {label}: {k} is {rec[k]}")
     batch_twins(tdb, report)
     mesh_twin(tdb, tqs, report)
+    closed_twin(tdb, report)
     log(f"twins SF {TWIN_SCALE}: cuda == cpu (results, counters, admission logs, cohort "
-        f"plans, backend stats, clock; the mesh twin's mesh_stats and exchange too); "
+        f"plans, backend stats, clock; the mesh twin's mesh_stats and exchange too; the "
+        f"closed loop's latencies); "
         f"singleton bursts: planning on == off "
         f"in {time.perf_counter() - t0:.1f} s")
     return rows
@@ -3508,17 +3707,18 @@ def example_main(name):
 
 
 def examples_phase(report):
-    """Phase 8: the two example twins on the card, each with the launch
+    """Phase 8: the three example twins on the card, each with the launch
     counts reset before it and read after it. The quickstart's Q_B must
     match the port's reference executor and B1 must launch; the serving
-    twin (a host simulator) must print its lines and launch nothing."""
+    twin (a host simulator) must print its lines and launch nothing; the
+    closed-loop twin must print its grid's four lines and launch B1."""
     import contextlib
     import io
 
     from repro_torch.kernels import _build
 
     out = report["examples"] = {}
-    for name in ("quickstart_torch", "serve_folding_torch"):
+    for name in ("quickstart_torch", "serve_folding_torch", "concurrent_workload_torch"):
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()) as text:
@@ -3530,13 +3730,19 @@ def examples_phase(report):
         log(f"example {name}: {out[name]['wall_s']:.1f} s; launches of B1-B4 "
             f"{ {k: launches.get(k, 0) for k in MAIN_KERNELS} }; "
             + " | ".join(line for line in lines[:8] if line))
-    qs, sf = out["quickstart_torch"], out["serve_folding_torch"]
+    qs, sf, cw = (out[k] for k in ("quickstart_torch", "serve_folding_torch",
+                                   "concurrent_workload_torch"))
     if "Q_B result matches reference executor: True" not in qs["lines"]:
         raise AssertionError(f"quickstart: {qs['lines']}")
     if not qs["launches"].get("fused_chain"):
         raise AssertionError(f"quickstart: B1 did not launch: {qs['launches']}")
     if any(sf["launches"].values()) or not any(x.startswith("folding :") for x in sf["lines"]):
         raise AssertionError(f"serving twin: {sf}")
+    grid = [line.split(" throughput")[0].strip() for line in cw["lines"]]
+    if grid != ["isolated", "qpipe_osp", "graft", "graft 4w×8p"]:
+        raise AssertionError(f"closed-loop twin: {cw['lines']}")
+    if not cw["launches"].get("fused_chain"):
+        raise AssertionError(f"closed-loop twin: B1 did not launch: {cw['launches']}")
 
 
 def card_smi():

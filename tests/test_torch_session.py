@@ -365,9 +365,16 @@ with contextlib.redirect_stdout(io.StringIO()) as lm_out:
     runpy.run_path(str(lm_examples / "serve_folding_torch.py"))["main"](["--device", "cpu"])
     assert runpy.run_path(str(lm_examples / "quickstart_torch.py"))["main"](["--device", "cpu"])
 assert "folding :" in lm_out.getvalue() and "matches reference executor: True" in lm_out.getvalue()
+from repro_torch.launch import workload as cl_workload
+cl_twin = runpy.run_path(str(lm_examples / "concurrent_workload_torch.py"))
+assert cl_twin["run_closed_loop"] is cl_workload.run_closed_loop
+cl_seqs = cl_twin["client_sequences"](db, 3, 2, seed=3)
+cl_run = cl_twin["run_closed_loop"](db, "graft", cl_seqs, device="cpu", keep_results=True)
+assert cl_run["completed"] == 6 and sorted(cl_run["results"]) == [(c, i) for c in range(3) for i in range(2)]
+assert cl_run["counters"]["kernel_chain_launches"] > 0
 leaked = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb")
+    if m.split(".")[0] in ("jax", "jaxlib", "repro", "graftdb", "benchmarks")
 )
 assert not leaked, leaked
 assert EngineConfig().device == "cuda"

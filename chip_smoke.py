@@ -218,11 +218,15 @@ itself and drives ``graftdb_torch``. Phases:
    run in TF32; no kernel of the port may launch. Results go to ``train``
    in ``chip_smoke.json``;
 6d. dry run (``repro_torch.launch.dryrun``): (a) ``run_cell`` for
-   stablelm-3b's train_4k on the 16 x 16 and 2 x 16 x 16 production
-   meshes (counted on ``meta``, once; the CPU tests and sweep count the
-   other cells): both records ``ok``, their ``hlo_stats`` and seconds
-   recorded; (b) phase 6c's own step (stablelm-3b, float32, ``adamw``,
-   remat, 1 x 4,096 tokens): the op counter over the first step of 6c's
+   stablelm-3b's train_4k, rwkv6-7b's prefill_32k and recurrentgemma-9b's
+   train_4k on the 16 x 16 and 2 x 16 x 16 production meshes (each
+   counted on ``meta`` once; the CPU tests and sweep count the other
+   cells): every record ``ok``, its ``hlo_stats`` and seconds recorded,
+   the two recurrent cells' collectives with the all-to-alls of their
+   chunk scans (the collective model is arithmetic on the specs; the CPU
+   tests hold it against XLA's programs); (b) phase 6c's own step
+   (stablelm-3b, float32, ``adamw``, remat, 1 x 4,096 tokens): the op
+   counter over the first step of 6c's
    run on the card (``TrainTimer(count_first=True)``) must give the
    ``meta`` count exactly, FLOPs and bytes (the ops whose calls differ are
    recorded); the specs' bytes on the one-shard mesh within 1% of the
@@ -3565,20 +3569,25 @@ def trace_train(report):
         torch.cuda.empty_cache()
 
 
-#: phase 6d, the dry run: the cell counted on ``meta`` on both production
-#: meshes (the CPU tests and sweep count the others), and the step held
-#: against the card: phase 6c's own (stablelm-3b, float32, ``adamw``,
-#: remat, 1 x 4,096 tokens). The step's parameters and optimizer state
-#: must take within DRYRUN_ALLOC_TOL of the bytes the sharding specs give
-#: a one-shard mesh
-DRYRUN_CELLS = (("stablelm-3b", "train_4k"),)
+#: phase 6d, the dry run: the cells counted on ``meta`` on both production
+#: meshes (the CPU tests and sweep count the others): a dense cell and the
+#: two whose collective model holds the recurrent blocks' activation
+#: traffic (the RWKV6 time mix's chunk scan, the Griffin block's RG-LRU);
+#: and the step held against the card: phase 6c's own (stablelm-3b,
+#: float32, ``adamw``, remat, 1 x 4,096 tokens). The step's parameters and
+#: optimizer state must take within DRYRUN_ALLOC_TOL of the bytes the
+#: sharding specs give a one-shard mesh
+DRYRUN_CELLS = (("stablelm-3b", "train_4k"), ("rwkv6-7b", "prefill_32k"),
+                ("recurrentgemma-9b", "train_4k"))
 DRYRUN_STEP_SHAPE = {"kind": "train", "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH}
 DRYRUN_ALLOC_TOL = 0.01
 
 
 def dryrun_cells(out):
     """Phase 6d (a): ``dryrun.run_cell`` for ``DRYRUN_CELLS`` on both
-    production meshes, each (arch, shape) counted once."""
+    production meshes, each (arch, shape) counted once: every record
+    ``ok``, the recurrent cells' collectives with the all-to-alls of their
+    chunk scans."""
     from repro_torch.launch import dryrun
 
     counts, recs = {}, []
@@ -3592,6 +3601,9 @@ def dryrun_cells(out):
                 f"analytic bytes/device {rec.get('analytic_bytes_per_device')}")
             if rec["status"] != "ok":
                 raise AssertionError(f"dry run {arch}/{shape}/{rec['mesh']}: {rec.get('error')}")
+            coll = rec["hlo_stats"]["coll_bytes_per_device"]
+            if arch != "stablelm-3b" and "all-to-all" not in coll:
+                raise AssertionError(f"dry run {arch}/{shape}/{rec['mesh']}: no all-to-all")
 
 
 def dryrun_step(out, train):

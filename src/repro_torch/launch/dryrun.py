@@ -81,6 +81,17 @@ ROW_PARALLEL = {
     "w_o": {2: (0,)},
 }
 
+#: the recurrent blocks' products whose input a sequence-split step gathers
+#: whole over 'model' (``_rwkv_terms``, ``_rg_lru_terms``): the
+#: RG-LRU gates in every pass (so only their 'model' shard is gathered),
+#: the RWKV chunk scan's projections (and the decay LoRA's second product)
+#: and the recurrence's input projection in the backward (where their
+#: 'model' shard is gathered once more). Their gradient is a 'model' shard's,
+#: reduced over the data axes only.
+GATHERED_INPUT_FWD = ("w_a", "w_x")
+GATHERED_INPUT_BWD = ("w_r", "w_k", "w_v", "w_rec_in")
+GATHERED_INPUT = GATHERED_INPUT_FWD + GATHERED_INPUT_BWD + ("w_dec2",)
+
 
 def mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
@@ -186,7 +197,10 @@ def collective_model(cfg, shape, mesh, params, pspecs):
     * each weight leaf is gathered whole, over 'model' and then over the
       data axes, once for prefill and twice for train (forward, and the
       rematerialized backward); expert-stacked leaves keep their experts
-      on 'model' and are gathered over the data axes only (L / n_m);
+      on 'model' and are gathered over the data axes only (L / n_m); the
+      head of a prefill, which reads the last position alone, only over
+      the data axes (L / n_m), and that position's row [B_d, D] comes from
+      the last 'model' shard by a permute;
     * each attention layer of at most ``QCHUNK_THRESHOLD`` queries
       gathers its K and V [B_d, S, KV, dh] over 'model' (S the keys'
       length); train all-reduces dK and dV. A longer one runs query
@@ -205,30 +219,86 @@ def collective_model(cfg, shape, mesh, params, pspecs):
     * train all-reduces each leaf's gradient over the data axes and over
       'model', whole (experts: L / n_m, over the data axes), as XLA emits
       it for host devices, a reduce-scatter being an all-reduce and a
-      slice there.
+      slice there; a tied embedding (the head too) is gathered once more
+      for its lookup and its gradient's two parts are reduced apart;
+    * each RWKV6 time-mix layer (keyed on its ``w_r``; K = H dh channels,
+      T = ``rwkv_chunk``, n = S / T chunks, l the decay LoRA's rank, f32
+      the float32 width of the tensors the reference casts for its chunk
+      scan): the token shift's boundary row [B_d, D] from the previous
+      'model' shard (a permute a forward pass; the backward's halo grows
+      with 'model', n_m - 1 rows back and n_m - 2 forward); the chunk
+      inputs r, k, v and w [B_d, S / n_m, K] f32
+      moved from the sequence split to a split of the heads (all-to-alls,
+      4 for prefill, 15 for train with their gradients); each chunk's
+      output [B_d, T, K] f32 gathered over 'model' (n a forward pass);
+      train gathers the mixed inputs of the weight gradients whole
+      (three [B_d, S, D] and the LoRA's [B_d, S, l]) and all-reduces the
+      inputs' gradients of the same shapes, and all-reduces u's gradient
+      [K / n_m] f32 over the data axes once a chunk;
+    * each Griffin recurrent block (keyed on its ``w_rec_in``, R channels):
+      the conv's and the gates' inputs [B_d, S / n_m, R] moved from the
+      sequence split to a split of the channels (two all-to-alls a pass,
+      five in train), the recurrence's input [B_d, S, R] gathered over
+      'model' for the gate products (a forward pass each, and the
+      backward too where 1 < n_d < n_m); train gathers
+      the block's input [B_d, S, D] and all-reduces the gradients of both
+      (two of R channels, one of D);
+    * the leaves whose input these gather whole (``GATHERED_INPUT``) reduce
+      a 'model' shard's gradient over the data axes only; the RG-LRU gates
+      are gathered over the data axes only (their 'model' shard), the
+      chunk scan's and the recurrence's input projections once more in
+      the backward.
 
     Decode, and any step whose sequence stays whole on 'model' (tensor
     parallelism):
 
     * each weight leaf that the data axes split is gathered over them
-      (L / its 'model' shards), but in decode not a dense one whose split
-      dim is the product's output (``ROW_PARALLEL``, the embedding),
-      where the few rows of activations move instead, which is not
-      counted, nor one that prefill ran (the encoder, the memory's K and
-      V projections);
+      (L / its 'model' shards), but not one that prefill ran (the encoder,
+      the memory's K and V projections), and in decode not a dense one
+      whose split dim is the product's output (``ROW_PARALLEL``, an
+      untied embedding; an MoE architecture and RWKV6 gather those):
+      there the whole batch's input rows [B, its contracted dims / their
+      'model' shards] are gathered over the data axes and the output
+      [B_d, D] goes back to the batch's split by an all-to-all, as the
+      embedding's rows do once a step (not RWKV6's); decode's wk and wv,
+      where the cache splits its KV heads over 'model' and their spec
+      does not, only the shard of heads that the cache holds (L / n_m);
     * an all-reduce over 'model' of the block output [B_d, S, D] (S = 1
       for decode; the encoder's S / 4 for its own blocks) after each
       ``ROW_PARALLEL`` product whose contracted dim 'model' splits,
       twice in train; train all-reduces each gradient over the data axes;
     * each MoE layer whose experts 'model' splits all-reduces the top-k
-      outputs [B_d, S k, D] over 'model'.
+      outputs [B_d, S k, D] over 'model';
+    * a tied embedding is gathered as the head's weight;
+    * each RWKV6 layer gathers its ``w_o`` and channel mix's ``w_down``
+      as it does its other leaves, moves ``w_dec1`` onto 'model' by a
+      permute (L / n_m) where the data axes are no larger than 'model'
+      and all-reduces the LoRA's partial sums [B_d, l], and gathers
+      r, k, v and g [B_d, K] and the receptance [B_d, D] over 'model';
+    * each Griffin recurrent block gathers its recurrence's input [B_d, R]
+      over 'model' for the gates;
+    * each attention layer whose cache the KV heads cannot split over
+      'model' (split-KV) moves wk and wv onto 'model' by a permute where
+      the data axes are no larger than 'model' (``_split_kv_terms``);
+    * a batch that the data axes do not split (long_500k's one row) moves
+      no weight: each product's output rows are all-reduced over the
+      devices that split its contracted dims (``_replicated_terms``).
 
-    Not modelled: the activation traffic of the RG-LRU and RWKV time-mix
-    blocks beyond their weights (their chunk scans' all-to-alls and state
-    gathers), and small reductions (the loss, norms of a few values).
-    ``test_collective_model_against_xla`` holds the model against XLA's
-    program of the reference's smoke steps for two architectures on a
-    2 x 2 mesh; ``tests/_xla_programs.py --table`` reads all ten.
+    Not modelled: small reductions (the loss, norms of a few values); a
+    sequence-split step's boundary rows but those of the RWKV6 steps;
+    XLA's other choices where the embedding table outweighs a device's
+    tokens (a vocabulary past a few thousand at smoke widths, or B_d = 1
+    and S / n_m = 64: it moves the lookups and the logits, not the table)
+    or where the batch is not split (the recurrent blocks' and split-KV's
+    few rows of state); the bytes of a bf16 step, which XLA on the CPU
+    moves as float32 (the model takes each tensor's width from the
+    reference's casts). The tests hold the
+    model against XLA's program of the reference's smoke steps, read by
+    the reference's analyzer: ``test_collective_model_against_xla`` and
+    ``test_torch_dryrun_recurrent.py`` on 2 x 2,
+    ``test_torch_dryrun_mesh.py`` on 4 x 4 and 8 x 4 (the production
+    meshes' n_d = n_m and n_d = 2 n_m) and 2 x 4;
+    ``tests/_xla_programs.py --table [--mesh]`` reads all ten archs.
 
     Returns (traffic bytes by kind, count by kind, {kind: {"count",
     "bytes"}} with each collective's result bytes, as the reference's
@@ -263,9 +333,31 @@ def collective_model(cfg, shape, mesh, params, pspecs):
         add("all-reduce", 1, B_d * S * D * act, n_m)
     shardings = dict(M.tree_leaves_with_path(SH.to_shardings(mesh, pspecs)))
     flat = dict(M.tree_leaves_with_path(params))
+    # the RWKV6 layers (time-mix and channel-mix leaves share one) by key
+    # prefix
+    rwkv_layers = {k[: -len("w_r")] for k in flat if k.endswith("/w_r")}
+    # decode moves a leaf that only the data axes split onto 'model' by a
+    # permute where 'model' has as many devices (else it is gathered)
+    resplit = 1 < n_d <= n_m
+    # decode of a batch that the data axes do not split (long_500k's one
+    # row): every device holds the whole batch
+    replicated = kind == "decode" and n_d > 1 and B % n_d != 0
+    if kind == "decode" and not replicated and not rwkv_layers:
+        # the embedding's rows [B_d, D], split by D over the data axes,
+        # moved to the batch's split (RWKV6's token shift gathers them)
+        add("all-to-all", 1, B_d * D * act, n_d)
+    if kind == "prefill" and seq_sharded:
+        # the last position's row, from the last 'model' shard, for the
+        # logits
+        add("collective-permute", 1, B_d * D * act, n_m)
     for key, leaf in flat.items():
         path = key.split("/")
         name = path[-1]
+        prefix = key[: -len(name)]
+        rwkv = prefix in rwkv_layers
+        # an attention layer decoding from a cache that its KV heads cannot
+        # split over 'model', so split on its sequence (split-KV)
+        split_kv = kind == "decode" and name in ("wk", "wv") and cfg.n_kv_heads % n_m != 0
         encoder = path[0] in ("enc_groups", "enc_final_norm")
         if kind == "decode" and (encoder or name in ("cwk", "cwv")):
             continue  # the encoder and the memory's K and V ran at prefill
@@ -277,15 +369,58 @@ def collective_model(cfg, shape, mesh, params, pspecs):
         expert = name in ("w_gate", "w_up", "w_down") and leaf.dim() - off == 3
         s_d, s_m = sh.shards_over(dp), sh.shards_over(("model",))
         contracted = ROW_PARALLEL.get(name, {}).get(leaf.dim() - off, ())
+        if replicated:
+            _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B, act)
+            if split_kv and name == "wk":
+                _split_kv_terms(add, flat[prefix + "wq"], leaf, layers, B, n_m, act, False)
+            continue
         if seq_sharded and not expert:
-            add("all-gather", passes, L / s_d, s_m)
-            add("all-gather", passes, L, s_d)
-            if train:
+            if name in GATHERED_INPUT_FWD or (kind == "prefill" and name == "lm_head"):
+                # (prefill's head reads the last position alone: only its
+                # data shard is gathered)
+                add("all-gather", passes, L / s_m, s_d)
+            else:
+                add("all-gather", passes, L / s_d, s_m)
+                add("all-gather", passes, L, s_d)
+            if train and name in GATHERED_INPUT:
+                add("all-reduce", 1, L / s_m, n_d)
+                if name in GATHERED_INPUT_BWD:
+                    add("all-gather", 1, L / s_m, s_d)
+            elif train:
+                # (w_dec1's gradient goes over 'model' a data shard at a time)
+                add("all-reduce", 1, L, n_d)
+                add("all-reduce", 1, L / s_d if name == "w_dec1" else L, n_m)
+            if train and name == "embed" and cfg.tied_embeddings:
+                # a tied embedding is also the head: gathered once more for
+                # the lookup, and its gradient's two parts reduced apart
+                add("all-gather", 1, L / s_m, s_d)
+                add("all-gather", 1, L, s_m)
                 add("all-reduce", 1, L, n_d)
                 add("all-reduce", 1, L, n_m)
+        elif kind == "decode" and resplit and (name == "w_dec1" or split_kv):
+            # re-split from the data axes onto the product's contracted dim
+            # over 'model': one permute of a 'model' shard's bytes
+            add("collective-permute", 1, L / n_m, s_d)
         else:
-            if not (kind == "decode" and not expert and (contracted or name == "embed")):
+            # decode moves the rows of activations, not the weight, where the
+            # data axes split a dense product's output (``ROW_PARALLEL``, an
+            # untied embedding); an MoE architecture and RWKV6 gather it
+            rows_move = (kind == "decode" and not expert and not rwkv
+                         and ((contracted and cfg.moe is None)
+                              or (name == "embed" and not cfg.tied_embeddings)))
+            if (kind == "decode" and name in ("wk", "wv") and cfg.n_kv_heads % n_m == 0
+                    and "model" not in sh.axes(off + 1)):
+                # only the 'model' shard of heads that the cache holds there
+                add("all-gather", passes, L / n_m, s_d)
+            elif not rows_move:
                 add("all-gather", passes, L / s_m, s_d)
+            elif contracted:
+                # the whole batch's input rows, their 'model' shard, gathered
+                # over the data axes that split the product's output, and the
+                # output [B_d, D] moved back to the batch's split
+                rows = B * math.prod(leaf.shape[off + d] for d in contracted) / s_m
+                add("all-gather", layers, rows * act, s_d)
+                add("all-to-all", layers, B_d * D * act, s_d)
             if train:
                 add("all-reduce", 1, L / s_m, n_d)
         if not seq_sharded and any("model" in sh.axes(off + d) for d in contracted):
@@ -304,6 +439,14 @@ def collective_model(cfg, shape, mesh, params, pspecs):
             add("all-gather", 2 * layers * passes, kv, n_m)
             if train:
                 add("all-reduce", 2 * layers, kv, n_m)
+        if split_kv and name == "wk":
+            _split_kv_terms(add, flat[prefix + "wq"], leaf, layers, B_d, n_m, act, resplit)
+        if name == "w_r":
+            _rwkv_terms(add, cfg, kind, seq_sharded, resplit, flat, prefix, layers, B_d, S, n_d,
+                        n_m, act)
+        if name == "w_rec_in":
+            _rg_lru_terms(add, kind, seq_sharded, layers, B_d, S, D, leaf.shape[-1], n_d, n_m,
+                          act)
         if name == "router" and "model" in shardings["/".join(path[:-1] + ["w_gate"])].axes(off):
             tokens = B_d * S * D * act
             add("all-reduce", layers * passes, cfg.moe.top_k * tokens, n_m)
@@ -312,6 +455,130 @@ def collective_model(cfg, shape, mesh, params, pspecs):
                 if train:
                     add("all-reduce", layers, tokens, n_m)
     return traffic, count, result
+
+
+def _split_kv_terms(add, wq, wk, layers, B_d, n_m, act, resplit):
+    """Decode of ``layers`` attention layers whose cache the KV heads cannot
+    split over 'model', so split on its sequence: each device attends over
+    its share of the cached positions. The query [B_d, H, dh] is gathered
+    from its heads' split and the float32 partial outputs of its shape
+    all-reduced, each in two steps where g = gcd(KV, n_m) devices share a
+    KV head's positions (over n_m / g, then over g); the two softmax
+    statistics [B_d, H] are all-reduced over 'model', and the new token's
+    K and V too where wk and wv re-split onto 'model'."""
+    heads = wq.shape[-2]
+    kv_heads, dh = wk.shape[-2:]
+    g = math.gcd(kv_heads, n_m)
+    q = B_d * heads * dh
+    add("all-gather", layers, q * act / g, n_m // g)
+    add("all-gather", layers, q * act, g)
+    if resplit:
+        add("all-reduce", layers, 2 * B_d * kv_heads * dh * act, n_m)
+    add("all-reduce", layers, q * 4, n_m // g)
+    add("all-reduce", layers, q * 4, g)
+    add("all-reduce", 2 * layers, B_d * heads * 4, n_m)
+
+
+def _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B, act):
+    """Decode of a batch that every device holds whole: no weight moves;
+    each product's output rows [B, its output dims / their shards] are
+    all-reduced over the devices that split its contracted dims (the
+    input's, or ``ROW_PARALLEL``'s), and a tied embedding's once more as
+    the head."""
+    if leaf.dim() - off < 2 or name in ("ln_w", "ln_b"):
+        return  # norms, biases, mixes and decays act elementwise
+
+    def shards(d):
+        return math.prod(mesh.shape[a] for a in sh.axes(off + d))
+
+    def out_rows(dims):
+        return B * math.prod(leaf.shape[off + d] / shards(d) for d in range(leaf.dim() - off)
+                             if d not in dims) * act
+
+    dims = contracted or (0,)
+    n_m = mesh.shape["model"]
+    if name in ("wk", "wv") and cfg.n_kv_heads % n_m == 0 and not sh.axes(off + 1):
+        # the new K and V split over 'model' by heads, as the cache is
+        act = act / n_m
+    add("all-reduce", layers, out_rows(dims), math.prod(shards(d) for d in dims))
+    if name == "embed" and cfg.tied_embeddings:
+        add("all-reduce", 1, out_rows((1,)), shards(1))
+
+
+def _rwkv_terms(add, cfg, kind, seq_sharded, resplit, flat, prefix, layers, B_d, S, n_d, n_m,
+                act):
+    """The activation traffic of ``layers`` RWKV6 layers: the time mix (the
+    reference's ``rwkv_time_mix``, ``..._decode`` for decode) of K = H dh
+    channels in chunks of T = ``rwkv_chunk`` (n = ceil(S / T) of them), with
+    its decay LoRA of rank ``lora``, and in decode the channel mix's
+    receptance."""
+    K = flat[prefix + "w_r"].shape[-1]
+    lora = flat[prefix + "w_dec1"].shape[-1]
+    D = cfg.d_model
+    if kind == "decode":
+        # the dd partial sums of a re-split w_dec1; r, k, v and g, and the
+        # channel mix's receptance, gathered over 'model'
+        if resplit:
+            add("all-reduce", layers, B_d * lora * act, n_m)
+        add("all-gather", 4 * layers, B_d * K * act, n_m)
+        add("all-gather", layers, B_d * D * act, n_m)
+        return
+    if not seq_sharded:
+        return
+    train = kind == "train"
+    T = cfg.rwkv_chunk
+    n = -(-S // T)
+    # the token shift's boundary row from the previous 'model' shard, a
+    # forward pass each; the backward's halo grows with 'model': n_m - 1
+    # rows of the shift's gradient back, n_m - 2 rows forward
+    row = B_d * D * act
+    add("collective-permute", (2 if train else 1) * layers, row, n_m)
+    if train:
+        add("collective-permute", layers, (n_m - 1) * row, n_m)
+        if n_m > 2:
+            add("collective-permute", layers, (n_m - 2) * row, n_m)
+    # the float32 chunk inputs r, k, v and w moved from the sequence split
+    # to a split of the heads for the scan over chunks: four a pass (train:
+    # forward, rematerialized forward, backward), train three more for the
+    # gradients of the decay and the mixes
+    add("all-to-all", (15 if train else 4) * layers, B_d * (n * T // n_m) * K * 4, n_m)
+    # each chunk's float32 output gathered over 'model', a forward pass each
+    add("all-gather", (2 if train else 1) * n * layers, B_d * T * K * 4, n_m)
+    if train:
+        # the mixed inputs of the weight gradients gathered whole, and the
+        # inputs' gradients all-reduced: three of D channels and the LoRA's
+        for k in ("all-gather", "all-reduce"):
+            add(k, 3 * layers, B_d * S * D * act, n_m)
+            add(k, layers, B_d * S * lora * act, n_m)
+        # the bonus u's gradient, a chunk at a time, over the data axes
+        add("all-reduce", n * layers, K // n_m * 4, n_d)
+
+
+def _rg_lru_terms(add, kind, seq_sharded, layers, B_d, S, D, R, n_d, n_m, act):
+    """The activation traffic of ``layers`` Griffin recurrent blocks (the
+    reference's ``recurrent_block``; ``..._decode`` for decode) of R
+    recurrence channels."""
+    if kind == "decode":
+        # the recurrence's input gathered over 'model' for its gates
+        add("all-gather", layers, B_d * R * act, n_m)
+        return
+    if not seq_sharded:
+        return
+    train = kind == "train"
+    # the conv's input and the gated input moved from the sequence split to
+    # a split of the channels for the scan: two a pass, train one more
+    add("all-to-all", (5 if train else 2) * layers, B_d * (S // n_m) * R * act, n_m)
+    # the recurrence's input gathered whole for the gate products, a
+    # forward pass each, and in the backward too where 'model' outnumbers
+    # the data axes (XLA's choice: seen on 2 x 4 and 2 x 8, not on 2 x 2,
+    # 4 x 4, 4 x 2 or 1 x 8)
+    gathers = (3 if 1 < n_d < n_m else 2) if train else 1
+    add("all-gather", gathers * layers, B_d * S * R * act, n_m)
+    if train:
+        # the gates' and the input projections' inputs and gradients
+        add("all-gather", layers, B_d * S * D * act, n_m)
+        add("all-reduce", 2 * layers, B_d * S * R * act, n_m)
+        add("all-reduce", layers, B_d * S * D * act, n_m)
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from _xla_programs import renamed
+from _xla_programs import check_model, model_traffic, renamed
 
 from repro.configs import smoke_config as ref_smoke_config
 from repro.launch import hlo_analysis as RH
@@ -279,12 +279,15 @@ def test_collective_model_by_hand():
         "all-gather": 2 * 16384 + 2 * 6144 + 2 * 768 + 2 * 49152,
         "all-reduce": 32768 + 128 + 12288 + 1536 + 98304 + 6 * 1792 + 6 * 3584}
     assert count == {"all-gather": 8, "all-reduce": 5 + 6 + 6}
-    # decode: one token; neither the embedding nor wo (their data-split
-    # dim is the output) is gathered; wo's 3 all-reduces of [2, 1, 64],
-    # the 3 combines of [2, 2, 64]
+    # decode: one token; the embedding (its data-split dim is the output)
+    # is not gathered, its rows [2, 64] (256 bytes) go to the batch's split
+    # by an all-to-all; an MoE architecture gathers wo's 'model' shard
+    # (12,288) over 'data'; wo's 3 all-reduces of [2, 1, 64], the 3
+    # combines of [2, 2, 64]
     traffic, count, _ = model(8, "decode")
-    assert traffic == {"all-gather": 768 + 49152, "all-reduce": 3 * 256 + 3 * 512}
-    assert count == {"all-gather": 2, "all-reduce": 6}
+    assert traffic == {"all-gather": 768 + 6144 + 49152, "all-reduce": 3 * 256 + 3 * 512,
+                       "all-to-all": 128}
+    assert count == {"all-gather": 3, "all-reduce": 6, "all-to-all": 1}
     one = ProductionMesh((1, 1), ("data", "model"))
     assert D.collective_model(cfg, {"kind": "train", "seq_len": 8, "global_batch": 4}, one,
                               params, SH.param_specs(cfg, one, params)) == ({}, {}, {})
@@ -301,18 +304,7 @@ def test_collective_model_against_xla(hlo_texts, arch, kind, seq, batch):
     text = hlo_texts[f"step:{arch}:{kind}:{seq}x{batch}"]
     xla = RH.analyze(renamed(text)).coll_bytes
     assert sum(RH.analyze(text).coll_bytes.values()) >= sum(xla.values())
-    cfg = smoke_config(arch)
-    params = M.abstract_params(cfg, torch.float32)
-    traffic, _, _ = D.collective_model(cfg, {"kind": kind, "seq_len": seq, "global_batch": batch},
-                                       ProductionMesh((2, 2), ("data", "model")), params,
-                                       SH.param_specs(cfg, ProductionMesh((2, 2), ("data", "model")),
-                                                      params))
-    total = sum(xla.values())
-    assert abs(sum(traffic.values()) / total - 1) < 0.10, (traffic, xla)
-    for k, v in traffic.items():
-        tol = 0.25 if (kind, k) == ("decode", "all-reduce") else 0.10
-        assert abs(v / xla[k] - 1) < tol, (k, traffic, xla)
-    assert sum(v for k, v in xla.items() if k not in traffic) < 0.03 * total, xla
+    check_model(kind, model_traffic(arch, kind, seq, batch), xla)
 
 
 def test_run_cell_and_main_on_a_full_size_cell(tmp_path, monkeypatch):
@@ -336,8 +328,9 @@ def test_run_cell_and_main_on_a_full_size_cell(tmp_path, monkeypatch):
                            "coll_count"}
         assert hs["flops_per_device"] == rec["cost_analysis"]["flops"] / mesh.size > 0
         assert hs["mem_bytes_per_device"] == rec["cost_analysis"]["bytes accessed"] / mesh.size
-        assert set(hs["coll_bytes_per_device"]) == {"all-gather", "all-reduce"}
+        assert set(hs["coll_bytes_per_device"]) == {"all-gather", "all-reduce", "all-to-all"}
         assert hs["coll_count"]["all-reduce"] == 2 * cfg.n_layers
+        assert hs["coll_count"]["all-to-all"] == 2 * cfg.n_layers + 1
         p = M.abstract_params(cfg)
         c = M.abstract_cache(cfg, 128, 32768)
         assert rec["analytic_bytes_per_device"] == int(

@@ -56,7 +56,7 @@ import torch
 
 from ..configs import SHAPES, cells, get_config
 from ..models import model as M
-from ..models.layers import QCHUNK_THRESHOLD
+from ..models.layers import QCHUNK, QCHUNK_THRESHOLD
 from ..train.optim import abstract_opt_state
 from ..train.train_step import make_train_step
 from . import sharding as SH
@@ -198,29 +198,42 @@ def collective_model(cfg, shape, mesh, params, pspecs):
       data axes, once for prefill and twice for train (forward, and the
       rematerialized backward); expert-stacked leaves keep their experts
       on 'model' and are gathered over the data axes only (L / n_m); the
-      head of a prefill, which reads the last position alone, only over
-      the data axes (L / n_m), and that position's row [B_d, D] comes from
-      the last 'model' shard by a permute;
+      last position's row [B_d, D] of a prefill comes from the last
+      'model' shard by a permute;
+    * the embedding and the head (:func:`_table_terms`): the lookup gathers
+      the table once, or, where the table's share outweighs the rows and
+      tokens that the lookups would move (:func:`moves_lookups`: V past
+      about B_d S at n_d = n_m), moves the lookups instead; train's
+      gradient of the lookups is reduced whole, or moved as rows where
+      V (n_m + 1) / n_m > 2 B_d S; train's head gathers its weight whole
+      while V is at most the tokens of a loss chunk B c, and past that
+      (or after a vision stub's prefix) splits the logits by the
+      vocabulary; prefill's head gathers the weight's 'model' shard over
+      the data axes (it reads the last position alone);
     * each attention layer of at most ``QCHUNK_THRESHOLD`` queries
       gathers its K and V [B_d, S, KV, dh] over 'model' (S the keys'
       length); train all-reduces dK and dV. A longer one runs query
-      chunks against the keys' shards: it gathers its queries
-      Q [B_d, S, H, dh] over 'model' and all-reduces each chunk's partial
-      output (Q's bytes in all) and its two float32 softmax statistics
-      [B_d, H, S]; train gathers Q four times, all-reduces the outputs
-      three times and the statistics five times;
+      chunks against the keys' shards, and so does a shorter one whose K
+      and V outweigh Q (2 KV > H, the same lengths): it gathers its
+      queries Q [B_d, S, H, dh] over 'model' and all-reduces each chunk's
+      partial output (Q's bytes in all) and its two float32 softmax
+      statistics [B_d, H, S]; train gathers Q four times, all-reduces the
+      outputs three times and the statistics five times (unchunked: Q five
+      times, the statistics four, and an all-to-all of the float32 scores
+      [B_d, H, S / n_m, S] over 'model'); where the chunks are fewer than
+      the 'model' devices, each chunk's queries are split over
+      n_m / chunks devices (:func:`_chunk_split_terms`);
     * each MoE layer gathers its tokens [B_d, S, D] over 'model' for the
       dispatch and all-reduces the top-k outputs [B_d, S k, D] over
       'model' for the combine; train gathers once more and all-reduces
-      the dispatch's gradient [B_d, S, D];
-    * train past ``LOSS_CHUNK`` tokens gathers the final hidden states
-      [B_d, S, D] over 'model' twice for the loss's chunks and all-reduces
-      them once;
+      the dispatch's gradient [B_d, S, D]; the top-k gathers its float32
+      router logits [B_d, S, E] over 'model' and the whole batch's
+      [B, S, E] over the data axes, and its weights [B_d, S, k] over
+      'model', a forward pass each;
     * train all-reduces each leaf's gradient over the data axes and over
       'model', whole (experts: L / n_m, over the data axes), as XLA emits
       it for host devices, a reduce-scatter being an all-reduce and a
-      slice there; a tied embedding (the head too) is gathered once more
-      for its lookup and its gradient's two parts are reduced apart;
+      slice there;
     * each RWKV6 time-mix layer (keyed on its ``w_r``; K = H dh channels,
       T = ``rwkv_chunk``, n = S / T chunks, l the decay LoRA's rank, f32
       the float32 width of the tensors the reference casts for its chunk
@@ -268,13 +281,16 @@ def collective_model(cfg, shape, mesh, params, pspecs):
       ``ROW_PARALLEL`` product whose contracted dim 'model' splits,
       twice in train; train all-reduces each gradient over the data axes;
     * each MoE layer whose experts 'model' splits all-reduces the top-k
-      outputs [B_d, S k, D] over 'model';
+      outputs [B_d, S k, D] over 'model'; decode moves the router onto
+      'model' as it moves ``w_dec1`` and all-reduces the logits [B_d, E];
     * a tied embedding is gathered as the head's weight;
     * each RWKV6 layer gathers its ``w_o`` and channel mix's ``w_down``
       as it does its other leaves, moves ``w_dec1`` onto 'model' by a
       permute (L / n_m) where the data axes are no larger than 'model'
       and all-reduces the LoRA's partial sums [B_d, l], and gathers
-      r, k, v and g [B_d, K] and the receptance [B_d, D] over 'model';
+      r, k, v and g [B_d, K] and the receptance [B_d, D] over 'model'
+      (where K > D, the five mixed inputs [B_d, D], the new shift states
+      and the head's input instead);
     * each Griffin recurrent block gathers its recurrence's input [B_d, R]
       over 'model' for the gates;
     * each attention layer whose cache the KV heads cannot split over
@@ -282,23 +298,34 @@ def collective_model(cfg, shape, mesh, params, pspecs):
       the data axes are no larger than 'model' (``_split_kv_terms``);
     * a batch that the data axes do not split (long_500k's one row) moves
       no weight: each product's output rows are all-reduced over the
-      devices that split its contracted dims (``_replicated_terms``).
+      devices that split its contracted dims (``_replicated_terms``;
+      experts contract their D, the down projection's output is gathered
+      over the data axes twice, and the combine's [B, k, D] all-reduced
+      over 'model'); split-KV attention moves its query, output and
+      positions (:func:`_one_row_split_kv_terms`); RWKV6 permutes the
+      token shift's new state [B, D / n_d] a layer and gathers all layers'
+      over the data axes; a Griffin block permutes its recurrence's output
+      [B, R / n_d].
 
     Not modelled: small reductions (the loss, norms of a few values); a
-    sequence-split step's boundary rows but those of the RWKV6 steps;
-    XLA's other choices where the embedding table outweighs a device's
-    tokens (a vocabulary past a few thousand at smoke widths, or B_d = 1
-    and S / n_m = 64: it moves the lookups and the logits, not the table)
-    or where the batch is not split (the recurrent blocks' and split-KV's
-    few rows of state); the bytes of a bf16 step, which XLA on the CPU
-    moves as float32 (the model takes each tensor's width from the
-    reference's casts). The tests hold the
-    model against XLA's program of the reference's smoke steps, read by
-    the reference's analyzer: ``test_collective_model_against_xla`` and
+    sequence-split step's boundary rows but those of the RWKV6 steps and
+    a vision stub's prefix; the bytes of a bf16 step, which XLA on the
+    CPU moves as float32 (the model takes each tensor's width from the
+    reference's casts); where 'model' outnumbers the data axes, the
+    lookups' backward (taken as where the data axes outnumber 'model') and
+    one-row decode; a vision stub's text rows past one loss chunk; cross
+    attention with grouped queries whose chunks are fewer than the
+    'model' devices; eight or more query chunks fewer than the 'model'
+    devices (XLA then moves no scores). The tests hold the model against
+    XLA's program of the reference's smoke steps, read by the reference's
+    analyzer: ``test_collective_model_against_xla`` and
     ``test_torch_dryrun_recurrent.py`` on 2 x 2,
     ``test_torch_dryrun_mesh.py`` on 4 x 4 and 8 x 4 (the production
-    meshes' n_d = n_m and n_d = 2 n_m) and 2 x 4;
-    ``tests/_xla_programs.py --table [--mesh]`` reads all ten archs.
+    meshes' n_d = n_m and n_d = 2 n_m) and 2 x 4,
+    ``test_torch_dryrun_embed.py`` on both sides of each embedding and
+    head boundary, one-row decode, and a ('data', 'model') = (2, 16) mesh
+    (the production meshes' 'model'); ``tests/_xla_programs.py --table
+    [--mesh]`` reads all ten archs.
 
     Returns (traffic bytes by kind, count by kind, {kind: {"count",
     "bytes"}} with each collective's result bytes, as the reference's
@@ -327,10 +354,6 @@ def collective_model(cfg, shape, mesh, params, pspecs):
         ent["count"] += n
         ent["bytes"] += int(n * res)
 
-    if train and seq_sharded and S > LOSS_CHUNK:
-        # the loss's chunks of the final hidden states [B_d, S, D]
-        add("all-gather", 2, B_d * S * D * act, n_m)
-        add("all-reduce", 1, B_d * S * D * act, n_m)
     shardings = dict(M.tree_leaves_with_path(SH.to_shardings(mesh, pspecs)))
     flat = dict(M.tree_leaves_with_path(params))
     # the RWKV6 layers (time-mix and channel-mix leaves share one) by key
@@ -370,14 +393,33 @@ def collective_model(cfg, shape, mesh, params, pspecs):
         s_d, s_m = sh.shards_over(dp), sh.shards_over(("model",))
         contracted = ROW_PARALLEL.get(name, {}).get(leaf.dim() - off, ())
         if replicated:
-            _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B, act)
+            _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B, act,
+                              expert)
             if split_kv and name == "wk":
-                _split_kv_terms(add, flat[prefix + "wq"], leaf, layers, B, n_m, act, False)
+                _one_row_split_kv_terms(add, flat[prefix + "wq"], leaf, layers, B, n_d, n_m, act)
+                # the cache's int32 positions [n, T] from their split over
+                # 'model' (T the cache's length, the window's if shorter)
+                cap = shape["seq_len"] if cfg.attn_window is None else min(
+                    shape["seq_len"], cfg.attn_window)
+                add("all-gather", 1, layers * cap * 4, n_m)
+            if name == "router" and "model" in shardings[prefix + "w_gate"].axes(off):
+                add("all-reduce", layers, cfg.moe.top_k * B * D * act, n_m)
+            if name == "w_r":
+                # the token shift's new state [B, D], split over the data
+                # axes, moved by a permute a layer, and all layers' [n, B, D]
+                # gathered over them for the cache
+                add("collective-permute", layers, B * D * act / n_d, n_m)
+                add("all-gather", 1, layers * B * D * act, n_d)
+            if name == "w_rec_in":
+                # the recurrence's output [B, R] to the out projection's
+                # split over the data axes, a permute of its shard
+                add("collective-permute", layers, B * leaf.shape[-1] * act / n_d, n_m)
+            continue
+        if seq_sharded and name in ("embed", "lm_head"):
+            _table_terms(add, cfg, kind, name, L, s_d, s_m, B, S, n_d, n_m, act)
             continue
         if seq_sharded and not expert:
-            if name in GATHERED_INPUT_FWD or (kind == "prefill" and name == "lm_head"):
-                # (prefill's head reads the last position alone: only its
-                # data shard is gathered)
+            if name in GATHERED_INPUT_FWD:
                 add("all-gather", passes, L / s_m, s_d)
             else:
                 add("all-gather", passes, L / s_d, s_m)
@@ -390,17 +432,13 @@ def collective_model(cfg, shape, mesh, params, pspecs):
                 # (w_dec1's gradient goes over 'model' a data shard at a time)
                 add("all-reduce", 1, L, n_d)
                 add("all-reduce", 1, L / s_d if name == "w_dec1" else L, n_m)
-            if train and name == "embed" and cfg.tied_embeddings:
-                # a tied embedding is also the head: gathered once more for
-                # the lookup, and its gradient's two parts reduced apart
-                add("all-gather", 1, L / s_m, s_d)
-                add("all-gather", 1, L, s_m)
-                add("all-reduce", 1, L, n_d)
-                add("all-reduce", 1, L, n_m)
-        elif kind == "decode" and resplit and (name == "w_dec1" or split_kv):
+        elif kind == "decode" and resplit and (name in ("w_dec1", "router") or split_kv):
             # re-split from the data axes onto the product's contracted dim
-            # over 'model': one permute of a 'model' shard's bytes
+            # over 'model': one permute of a 'model' shard's bytes (the
+            # router's partial logits [B_d, E] all-reduced over 'model')
             add("collective-permute", 1, L / n_m, s_d)
+            if name == "router":
+                add("all-reduce", layers, B_d * leaf.shape[-1] * act, n_m)
         else:
             # decode moves the rows of activations, not the weight, where the
             # data axes split a dense product's output (``ROW_PARALLEL``, an
@@ -427,18 +465,33 @@ def collective_model(cfg, shape, mesh, params, pspecs):
             out = B_d * (S_enc if encoder else S) * D * act
             add("all-reduce", layers * passes, out, n_m)
         q_len = S_enc if encoder else S
-        if seq_sharded and name in ("wk", "cwk") and q_len > QCHUNK_THRESHOLD:
-            wq = flat[key[: -len(name)] + name.replace("k", "q")]
+        if seq_sharded and name in ("wk", "cwk"):
+            wq = flat[prefix + name.replace("k", "q")]
+            heads, kv_heads = wq.shape[-2], leaf.shape[-2]
+            kv_len = S_enc if encoder or name == "cwk" else S
             q = B_d * q_len * math.prod(wq.shape[-2:]) * act
-            stats = B_d * wq.shape[-2] * q_len * 4
-            add("all-gather", layers * (4 if train else 1), q, n_m)
-            add("all-reduce", layers * (3 if train else 1), q, n_m)
-            add("all-reduce", layers * (5 if train else 2), stats, n_m)
-        elif seq_sharded and name in ("wk", "cwk"):
-            kv = B_d * (S_enc if encoder or name == "cwk" else S) * math.prod(leaf.shape[-2:]) * act
-            add("all-gather", 2 * layers * passes, kv, n_m)
-            if train:
-                add("all-reduce", 2 * layers, kv, n_m)
+            kv = B_d * kv_len * math.prod(leaf.shape[-2:]) * act
+            chunks = q_len > QCHUNK_THRESHOLD
+            few_chunks = chunks and -(-q_len // QCHUNK) < n_m
+            if few_chunks and (name == "wk" or kv_heads == heads):
+                _chunk_split_terms(add, train, layers, B_d, q_len, kv_len, heads, kv_heads,
+                                   leaf.shape[-1], n_m, act)
+            elif (chunks and not few_chunks) or 2 * kv > q:
+                # query chunks, or K and V outweighing Q: Q gathered, each
+                # partial output and the two softmax statistics all-reduced;
+                # unchunked, train's backward gathers Q once more, takes the
+                # statistics from the forward and moves the float32 scores'
+                # gradient [B_d, H, S / n_m, S] by an all-to-all over 'model'
+                stats = B_d * heads * q_len * 4
+                add("all-gather", layers * ((4 if chunks else 5) if train else 1), q, n_m)
+                add("all-reduce", layers * (3 if train else 1), q, n_m)
+                add("all-reduce", layers * ((5 if chunks else 4) if train else 2), stats, n_m)
+                if train and not chunks:
+                    add("all-to-all", layers, stats * q_len / n_m, n_m)
+            else:
+                add("all-gather", 2 * layers * passes, kv, n_m)
+                if train:
+                    add("all-reduce", 2 * layers, kv, n_m)
         if split_kv and name == "wk":
             _split_kv_terms(add, flat[prefix + "wq"], leaf, layers, B_d, n_m, act, resplit)
         if name == "w_r":
@@ -447,14 +500,233 @@ def collective_model(cfg, shape, mesh, params, pspecs):
         if name == "w_rec_in":
             _rg_lru_terms(add, kind, seq_sharded, layers, B_d, S, D, leaf.shape[-1], n_d, n_m,
                           act)
-        if name == "router" and "model" in shardings["/".join(path[:-1] + ["w_gate"])].axes(off):
+        if name == "router" and "model" in shardings[prefix + "w_gate"].axes(off):
             tokens = B_d * S * D * act
             add("all-reduce", layers * passes, cfg.moe.top_k * tokens, n_m)
             if seq_sharded:
                 add("all-gather", layers * (3 if train else 1), tokens, n_m)
                 if train:
                     add("all-reduce", layers, tokens, n_m)
+        if name == "router" and seq_sharded:
+            # the top-k's float32 router logits [B_d, S, E] gathered over
+            # 'model', the whole batch's [B, S, E] over the data axes, and
+            # the top-k weights [B_d, S, k] over 'model', a forward pass each
+            logits = S * leaf.shape[-1] * 4
+            add("all-gather", layers * passes, B_d * logits, n_m)
+            add("all-gather", layers * passes, B * logits, n_d)
+            add("all-gather", layers * passes, B_d * S * cfg.moe.top_k * 4, n_m)
     return traffic, count, result
+
+
+def moves_lookups(V, D, act, B, S, n_d, n_m) -> bool:
+    """Whether XLA's partitioner moves the lookups of ``embed[tokens]``
+    (B x S int32 tokens split over the data axes, a [V, D] table split
+    (model, data) of ``act``-byte rows) rather than the table: where the
+    table's share, V D act ((n_d - 1) / n_d + 1 / n_m) or, with the data
+    axes ring-reduced, V D act (n_d - 1) / n_d, outweighs the rows
+    [B_d, S, D] and tokens [B, S] that the lookups move instead,
+    B_d S D act + 4 B S or B S D act (n_m - 1) / (n_m n_d) + 4 B S (N - 1) / N
+    (N = n_d n_m): the smaller of the two boundaries, fitted to XLA's
+    choice over n_d, n_m = 2..16, D = 32..1024, f32 and bf16 rows and
+    2,048..131,072 tokens."""
+    N, row, tokens = n_d * n_m, D * act, 4 * B * S
+    bounds = [((B / n_d) * S * row + tokens) / (row * ((n_d - 1) / n_d + 1 / n_m))]
+    if n_d > 1:
+        bounds.append((B * S * row * (n_m - 1) / N + tokens * (N - 1) / N)
+                      / (row * (n_d - 1) / n_d))
+    return V > min(bounds)
+
+
+def _table_terms(add, cfg, kind, name, L, s_d, s_m, B, S, n_d, n_m, act):
+    """A sequence-split train or prefill step's traffic of the embedding
+    [V, D] (split (model, data)) and the head (``lm_head`` [D, V] split
+    (data, model), or the tied embedding's transpose), L bytes, whose
+    choices XLA makes from the shapes:
+
+    * the lookup gathers the table once (L / s_m over the data axes, then
+      L over 'model') unless :func:`moves_lookups`; then it gathers the
+      int32 tokens [B, S / n_m] over the data axes and [B, S] over 'model',
+      all-reduces the rows it finds [B, S, D / n_d] over 'model', and moves
+      a device's rows X = [B_d, S / n_m, D] to the activations' split: an
+      all-to-all over the data axes, and a permute where n_d = n_m or an
+      all-to-all over 'model' where n_d > n_m;
+    * train reduces the lookup's gradient whole over both axes, unless the
+      table's rows V (n_m + 1) / n_m outnumber twice a data shard's tokens
+      2 B_d S: then the rows' gradient Y = [B_d, S, D] is gathered over
+      'model' and moved by an all-to-all over the data axes (n_d = n_m: over
+      the data axes, over 'model', and a permute), and the table's gradient
+      [V, D / n_d] all-reduced over 'model' where V <= B S;
+    * train's head gathers its weight whole in both passes and reduces its
+      gradient over both axes while V <= B c, the tokens of a loss chunk
+      (c = min(``LOSS_CHUNK``, S)); past that (or after a vision stub's
+      prefix, whose text rows are out of step with the activations' split)
+      it splits the logits by the vocabulary: the weight's 'model' shard
+      gathered over the data axes in both passes, its gradient reduced
+      over them, the softmax's max and sum [B_d, S] f32 all-reduced over
+      'model'. Where it splits the logits or the loss runs in chunks
+      (S > c) the final hidden states [B_d, S, D] are gathered over
+      'model' in both passes and their gradient all-reduced, but where the
+      k = S / c chunks are fewer than the 'model' devices: each chunk's
+      states stay on its p = n_m / k devices, which gather the weight's
+      p / n_m of the vocabulary (over 'model', then the data axes, in each
+      pass) and reduce the chunk's gradients, of that share over both and
+      of the states [B_d, c / p, D] over the p, and the softmax's max and
+      the targets' logits [B_d, c / p] f32;
+    * prefill's head reads the last position alone: the weight's 'model'
+      shard is gathered over the data axes.
+
+    A vision stub's text (S less its prefix) is what a train step looks up
+    and scores."""
+    train = kind == "train"
+    prefix = cfg.n_prefix_embeds if train and cfg.frontend == "vision_stub" else 0
+    S -= prefix
+    D = cfg.d_model
+    V = L // (D * act)
+    B_d = B / n_d
+    rows = B_d * S * D * act
+    head = name == "lm_head" or cfg.tied_embeddings
+    if head and not train:
+        add("all-gather", 1, L / s_m, s_d)
+    elif head:
+        c = min(LOSS_CHUNK, S)
+        k = S // c
+        split_logits = V > B * c or prefix
+        split_chunks = not split_logits and 1 < k < n_m and S % c == 0 and n_m % k == 0
+        if split_logits:
+            add("all-gather", 2, L / s_m, s_d)
+            add("all-reduce", 1, L / s_m, n_d)
+            add("all-reduce", 2, B_d * S * 4, n_m)
+        elif split_chunks:
+            p = n_m // k
+            share = L * p / n_m
+            add("all-gather", 2, share / s_d, p)
+            add("all-gather", 2, share, s_d)
+            add("all-reduce", k, share, p)
+            add("all-reduce", k, share, n_d)
+            add("all-reduce", k, B_d * (c // p) * D * act, p)
+            add("all-reduce", 2 * k, B_d * (c // p) * 4, p)
+        else:
+            add("all-gather", 2, L / s_d, s_m)
+            add("all-gather", 2, L, s_d)
+            add("all-reduce", 1, L, n_d)
+            add("all-reduce", 1, L, n_m)
+        if split_logits or (S > c and not split_chunks):
+            add("all-gather", 2, rows, n_m)
+            add("all-reduce", 1, rows, n_m)
+    if name == "embed":
+        _lookup_terms(add, L, s_d, s_m, B, S, V, D, n_d, n_m, act, prefix, train)
+
+
+def _lookup_terms(add, L, s_d, s_m, B, S, V, D, n_d, n_m, act, prefix, train):
+    """The embedding lookup's part of :func:`_table_terms`; the text of a
+    vision stub's one-chunk train step comes out split (None, model, data)
+    and goes to the activations' split, and the prefix shifts it by
+    P (n_m - 1) / n_m rows across the 'model' shards (a permute forward,
+    two backward)."""
+    B_d = B / n_d
+    rows = B_d * S * D * act
+    lookups = s_d > 1 and s_m > 1 and moves_lookups(V, D, act, B, S, n_d, n_m)
+    shifted = prefix and S <= LOSS_CHUNK
+    if lookups and not (shifted and n_d > n_m):
+        add("all-gather", 1, 4 * B * S / n_m, n_d)
+        add("all-gather", 1, 4 * B * S, n_m)
+        add("all-reduce", 1, B * S * D * act / n_d, n_m)
+    elif lookups:
+        add("all-gather", 1, L / s_d, s_m)
+        add("all-gather", 1, 4 * B * S / n_m, n_d)
+    else:
+        add("all-gather", 1, L / s_m, s_d)
+        add("all-gather", 1, L, s_m)
+    x = B_d * S / n_m * D * act
+    if shifted:
+        if not lookups:
+            add("all-to-all", 1, x, n_d)
+        add("all-gather", 1, rows, n_m)
+        add("all-to-all", 1, rows, n_d)
+        add("collective-permute", 3 if train else 1, B_d * prefix * (n_m - 1) / n_m * D * act,
+            n_m)
+    elif lookups:
+        add("all-to-all", 1, x, n_d)
+        if n_d == n_m:
+            add("collective-permute", 1, x, n_m)
+        elif n_d > n_m:
+            add("all-to-all", 1, x, n_m)
+    if not train:
+        return
+    if not (lookups and (shifted or V * (n_m + 1) / n_m > 2 * B_d * S)):
+        add("all-reduce", 1, L, n_d)
+        add("all-reduce", 1, L, n_m)
+        return
+    if n_d == n_m:
+        add("all-gather", 1, rows, n_d)
+        add("all-to-all", 1, rows, n_m)
+        add("collective-permute", 1, rows, n_m)
+    else:
+        add("all-gather", 1, rows, n_m)
+        add("all-to-all", 1, rows, n_d)
+    if V <= B * S:
+        add("all-reduce", 1, L / s_d, n_m)
+
+
+def _chunk_split_terms(add, train, layers, B_d, S, S_kv, H, KV, dh, n_m, act):
+    """Query-chunked attention of ``layers`` layers whose k = S / ``QCHUNK``
+    chunks are fewer than the 'model' devices: each chunk's queries are
+    split over p = n_m / k devices. With Q = [B_d, S, H, dh] (q bytes), KV
+    = [B_d, S, KV, dh] (kv bytes) and the softmax statistics [B_d, H, S]
+    f32 (st bytes), a layer moves, where a KV head serves at most k query
+    heads (H <= k KV):
+
+    * Q's p-th parts gathered over k devices (once in prefill, four times
+      in train); each chunk's queries (q / k) gathered over its p devices
+      (prefill once, train twice) and over a device list (train twice);
+      each chunk's partial outputs (q / k) and their p-th parts all-reduced
+      over device lists (prefill once each, train three times each), the
+      statistics of each chunk over 'model' (prefill twice, train five
+      times);
+    * with fewer KV than query heads (grouped queries), train also gathers
+      each chunk's statistics over its p devices and one chunk of K over a
+      list; it moves the float32 scores of each chunk's queries against its
+      share of the S_kv keys, [B_d, H, c / p, S_kv / k], by two all-to-alls
+      over its p devices (so does cross attention, of S_kv memory keys).
+
+    Where a KV head serves more (H > k KV), the chunk's K (kv / k) is gathered
+    over lists (prefill twice, train five times) and once over its p
+    devices in train, train's K and V gradients all-reduced over the p
+    devices four times, and the partial outputs' p-th parts (q / (k p))
+    and the statistics' (st / (k p)) are all-reduced over k devices (once
+    and twice in prefill; twice and five times in train) and the outputs'
+    once more over a list in train.
+
+    The reference's analyzer reads a replica group written as a list of
+    devices as a pair (``hlo_analysis._GROUPS``), so those collectives are
+    counted over 2 here, as it records them."""
+    k = -(-S // QCHUNK)
+    p = n_m // k
+    c = S // k
+    q = B_d * S * H * dh * act
+    kv = B_d * S_kv * KV * dh * act
+    st = B_d * H * S * 4
+    add("all-gather", layers * (4 if train else 1), q / p, k)
+    if H > k * KV:
+        add("all-gather", layers * (5 if train else 2), kv / k, 2)
+        add("all-reduce", layers * k * (2 if train else 1), q / (k * p), k)
+        add("all-reduce", layers * k * (5 if train else 2), st / (k * p), k)
+        if train:
+            add("all-gather", layers, kv / k, p)
+            add("all-reduce", 4 * layers, 2 * kv / k, p)
+            add("all-reduce", layers * k, q / (k * p), 2)
+        return
+    add("all-gather", layers * k * (2 if train else 1), q / k, p)
+    add("all-reduce", layers * k * (3 if train else 1), q / k, 2)
+    add("all-reduce", layers * k * (3 if train else 1), q / (k * p), 2)
+    add("all-reduce", layers * k * (5 if train else 2), st / k, n_m)
+    if train:
+        add("all-gather", 2 * layers * k, q / k, 2)
+        if KV < H:
+            add("all-gather", layers * k, st / k, p)
+            add("all-gather", layers, kv / k, 2)
+        if KV < H or S_kv != S:
+            add("all-to-all", 2 * layers * k, B_d * H * (c // p) * (S_kv // k) * 4, p)
 
 
 def _split_kv_terms(add, wq, wk, layers, B_d, n_m, act, resplit):
@@ -479,12 +751,37 @@ def _split_kv_terms(add, wq, wk, layers, B_d, n_m, act, resplit):
     add("all-reduce", 2 * layers, B_d * heads * 4, n_m)
 
 
-def _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B, act):
+def _one_row_split_kv_terms(add, wq, wk, layers, B, n_d, n_m, act):
+    """Split-KV decode of a batch that every device holds whole: the query
+    [B, H, dh] gathered from its heads' split (in two steps where
+    g = gcd(KV, n_m) > 1, as :func:`_split_kv_terms`; else from a device
+    list that the reference's analyzer reads as a pair), a shard of it (its
+    'model' shard, or its data shard where g = 1) and a 'model' shard of the
+    float32 output permuted, the output's shard
+    all-reduced over 'model', and the two softmax statistics [B, H] f32."""
+    heads = wq.shape[-2]
+    kv_heads, dh = wk.shape[-2:]
+    g = math.gcd(kv_heads, n_m)
+    q = B * heads * dh
+    if g > 1:
+        add("all-gather", layers, q * act / g, n_m // g)
+        add("all-gather", layers, q * act, g)
+    else:
+        add("all-gather", layers, q * act, 2)
+    add("collective-permute", layers, q * act / (n_m if g > 1 else n_d), n_m)
+    add("collective-permute", layers, q * 4 / n_m, n_m)
+    add("all-reduce", layers, q * 4 / n_m, n_m)
+    add("all-reduce", 2 * layers, B * heads * 4, n_m)
+
+
+def _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B, act, expert):
     """Decode of a batch that every device holds whole: no weight moves;
     each product's output rows [B, its output dims / their shards] are
     all-reduced over the devices that split its contracted dims (the
     input's, or ``ROW_PARALLEL``'s), and a tied embedding's once more as
-    the head."""
+    the head. Experts [E, D, F] split over 'model' contract their D; the
+    down projection's [B, E / n_m, D] output, split over the data axes,
+    is gathered over them, and once more for the weighted combine."""
     if leaf.dim() - off < 2 or name in ("ln_w", "ln_b"):
         return  # norms, biases, mixes and decays act elementwise
 
@@ -495,7 +792,10 @@ def _replicated_terms(add, cfg, mesh, name, leaf, sh, off, contracted, layers, B
         return B * math.prod(leaf.shape[off + d] / shards(d) for d in range(leaf.dim() - off)
                              if d not in dims) * act
 
-    dims = contracted or (0,)
+    if expert and name == "w_down":
+        add("all-gather", 2 * layers, out_rows((1,)) * shards(2), shards(2))
+        return
+    dims = (1,) if expert else contracted or (0,)
     n_m = mesh.shape["model"]
     if name in ("wk", "wv") and cfg.n_kv_heads % n_m == 0 and not sh.axes(off + 1):
         # the new K and V split over 'model' by heads, as the cache is
@@ -517,9 +817,16 @@ def _rwkv_terms(add, cfg, kind, seq_sharded, resplit, flat, prefix, layers, B_d,
     D = cfg.d_model
     if kind == "decode":
         # the dd partial sums of a re-split w_dec1; r, k, v and g, and the
-        # channel mix's receptance, gathered over 'model'
+        # channel mix's receptance, gathered over 'model'; where K > D, the
+        # mixed inputs [B_d, D] of the four and of the decay LoRA instead,
+        # the new shift states [n, B_d, D] and the head's input [B_d, D]
         if resplit:
             add("all-reduce", layers, B_d * lora * act, n_m)
+        if K > D:
+            add("all-gather", 5 * layers, B_d * D * act, n_m)
+            add("all-gather", 1, layers * B_d * D * act, n_m)
+            add("all-gather", 1, B_d * D * act, n_m)
+            return
         add("all-gather", 4 * layers, B_d * K * act, n_m)
         add("all-gather", layers, B_d * D * act, n_m)
         return

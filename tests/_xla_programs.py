@@ -100,9 +100,15 @@ def step_key(arch: str, kind: str, S: int, B: int, dims=(2, 2), widths=None) -> 
 
 def with_widths(cfg, widths=None):
     """``cfg`` with the fields of ``widths`` replaced (e.g. ``d_model``,
-    ``lru_dim``), so that tensors whose smoke shapes coincide differ."""
+    ``lru_dim``), so that tensors whose smoke shapes coincide differ;
+    ``n_experts`` replaces the MoE's field of that name (where there is an
+    MoE)."""
     if not widths:
         return cfg
+    widths = dict(widths)
+    experts = widths.pop("n_experts", None)
+    if experts and cfg.moe is not None:
+        widths["moe"] = dataclasses.replace(cfg.moe, n_experts=experts)
     new = dataclasses.replace(cfg, **widths)
     new.__post_init__()
     return new

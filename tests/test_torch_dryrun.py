@@ -260,16 +260,27 @@ def test_collective_model_by_hand():
     # (traffic = L) over each axis. Experts over 'data' only. The MoE
     # (tokens [2, 8, 64] = 2,048 bytes): 9 dispatch gathers, 6 combines
     # of the top-2 outputs (4,096), 3 all-reduces of the dispatch's
-    # gradient
+    # gradient; the top-k's f32 logits [2, 8, 4] (256) over 'model', the
+    # batch's [4, 8, 4] (512) over 'data', the weights [2, 8, 2] (128)
+    # over 'model', 6 times each. The table's 512 rows outnumber the 16
+    # tokens a data shard looks up, so the lookups move, not the table:
+    # the int32 tokens [4, 4] (64) over 'data' and [4, 8] (128) over
+    # 'model', the rows found [4, 8, 32] (2,048) all-reduced over 'model',
+    # a device's rows [2, 4, 64] (1,024) to the activations' split by an
+    # all-to-all and a permute; the gradient's rows [2, 8, 64] (2,048)
+    # gathered over 'data', moved by an all-to-all and a permute
     traffic, count, result = model(8, "train")
     assert traffic == {
-        "all-gather": 2 * (16384 + 32768) + 2 * (6144 + 12288) + 2 * 768 + 9 * 1024
-        + 2 * 49152,
-        "all-reduce": 2 * 65536 + 2 * 128 + 2 * 24576 + 2 * 1536 + 6 * 4096 + 3 * 2048
-        + 98304}
-    assert count == {"all-gather": 4 + 4 + 2 + 9 + 2, "all-reduce": 2 + 2 + 2 + 2 + 9 + 1}
+        "all-gather": 2 * (6144 + 12288) + 2 * 768 + 9 * 1024 + 2 * 49152
+        + 6 * (128 + 256 + 64) + 32 + 64 + 1024,
+        "all-reduce": 2 * 128 + 2 * 24576 + 2 * 1536 + 6 * 4096 + 3 * 2048 + 98304 + 2048,
+        "all-to-all": 512 + 1024,
+        "collective-permute": 1024 + 2048}
+    assert count == {"all-gather": 4 + 2 + 9 + 2 + 18 + 3, "all-reduce": 2 + 2 + 2 + 9 + 1 + 1,
+                     "all-to-all": 2, "collective-permute": 2}
     assert result["all-gather"]["bytes"] == (
-        2 * (32768 + 65536) + 2 * (12288 + 24576) + 2 * 1536 + 9 * 2048 + 2 * 98304)
+        2 * (12288 + 24576) + 2 * 1536 + 9 * 2048 + 2 * 98304 + 6 * (256 + 512 + 128)
+        + 64 + 128 + 2048)
     # train, 7 tokens: the sequence stays whole on 'model'. Each leaf the
     # data axis splits gathered over it twice (L / its 'model' shards),
     # its gradient all-reduced over it; wo's all-reduce of [2, 7, 64]
@@ -283,11 +294,12 @@ def test_collective_model_by_hand():
     # is not gathered, its rows [2, 64] (256 bytes) go to the batch's split
     # by an all-to-all; an MoE architecture gathers wo's 'model' shard
     # (12,288) over 'data'; wo's 3 all-reduces of [2, 1, 64], the 3
-    # combines of [2, 2, 64]
+    # combines of [2, 2, 64]; the router moved onto 'model' by one permute
+    # of its 'model' shard (768) and its logits [2, 4] (16) all-reduced
     traffic, count, _ = model(8, "decode")
-    assert traffic == {"all-gather": 768 + 6144 + 49152, "all-reduce": 3 * 256 + 3 * 512,
-                       "all-to-all": 128}
-    assert count == {"all-gather": 3, "all-reduce": 6, "all-to-all": 1}
+    assert traffic == {"all-gather": 6144 + 49152, "all-reduce": 3 * 256 + 3 * 512 + 3 * 16,
+                       "all-to-all": 128, "collective-permute": 768}
+    assert count == {"all-gather": 2, "all-reduce": 9, "all-to-all": 1, "collective-permute": 1}
     one = ProductionMesh((1, 1), ("data", "model"))
     assert D.collective_model(cfg, {"kind": "train", "seq_len": 8, "global_batch": 4}, one,
                               params, SH.param_specs(cfg, one, params)) == ({}, {}, {})

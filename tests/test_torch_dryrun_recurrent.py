@@ -94,7 +94,7 @@ def test_rwkv_collective_model_by_hand():
         "w_r": (None, "data", "model"), "w_dec1": (None, "data", None)}
     traffic, count, result = _model(cfg, params, "train", 64)
     # train, 64 tokens (n = 4 chunks), the sequence split over 'model'.
-    # Weights: embed and w_r gathered whole twice, over 'model' then 'data';
+    # Weights: w_r gathered whole twice, over 'model' then 'data';
     # w_dec1 over 'data' only; w_r's 'model' shard (8,192) gathered once
     # more and its gradient reduced over 'data' alone; w_dec1's gradient
     # over 'data' whole and over 'model' a data shard. Per layer: the token
@@ -102,24 +102,33 @@ def test_rwkv_collective_model_by_hand():
     # [2, 32, 64] f32 (16,384) moved 15 times; the 4 chunk outputs
     # [2, 16, 64] f32 (8,192) gathered twice; the mixes [2, 64, 64]
     # (16,384) gathered and all-reduced, 3 of D and 1 of the LoRA's; u's
-    # gradient [32] f32 (128) reduced over 'data' each chunk
+    # gradient [32] f32 (128) reduced over 'data' each chunk. The table's
+    # 512 rows outnumber a data shard's 128 tokens, so the lookups move:
+    # the int32 tokens [4, 32] (512) over 'data' and [4, 64] (1,024) over
+    # 'model', the rows found [4, 64, 32] (16,384) all-reduced over
+    # 'model', a device's rows [2, 32, 64] (8,192) moved by an all-to-all
+    # and a permute; the gradient's rows [2, 64, 64] (16,384) gathered
+    # over 'data', moved by an all-to-all and a permute
+    traffic, count, result = _model(cfg, params, "train", 64)
     assert traffic == {
-        "all-gather": 2 * 16384 + 2 * 32768 + 2 * 4096 + 2 * 8192 + 4096 + 2 * 8192
-        + 16 * 4096 + 8 * 8192,
-        "all-reduce": 2 * 65536 + 8192 + 16384 + 8192 + 8 * 16384 + 8 * 128,
-        "all-to-all": 30 * 8192,
-        "collective-permute": 6 * 256}
-    assert count == {"all-gather": 4 + 5 + 2 + 16 + 8, "all-reduce": 2 + 1 + 2 + 8 + 8,
-                     "all-to-all": 30, "collective-permute": 6}
-    assert result["all-to-all"] == {"count": 30, "bytes": 30 * 16384}
-    assert result["collective-permute"] == {"count": 6, "bytes": 6 * 256}
+        "all-gather": 2 * 4096 + 2 * 8192 + 4096 + 2 * 8192 + 16 * 4096 + 8 * 8192
+        + 256 + 512 + 8192,
+        "all-reduce": 8192 + 16384 + 8192 + 8 * 16384 + 8 * 128 + 16384,
+        "all-to-all": 30 * 8192 + 4096 + 8192,
+        "collective-permute": 6 * 256 + 8192 + 16384}
+    assert count == {"all-gather": 2 + 5 + 16 + 8 + 3, "all-reduce": 1 + 2 + 8 + 8 + 1,
+                     "all-to-all": 32, "collective-permute": 8}
+    assert result["all-to-all"] == {"count": 32, "bytes": 30 * 16384 + 8192 + 16384}
+    assert result["collective-permute"] == {"count": 8, "bytes": 6 * 256 + 8192 + 16384}
     # prefill: each leaf gathered once; the token shift's row once a layer
     # and the last position's row once; r, k, v and w moved 4 times a
-    # layer; the chunk outputs gathered once
+    # layer; the chunk outputs gathered once; the lookups as in train
     traffic, count, _ = _model(cfg, params, "prefill", 64)
-    assert traffic == {"all-gather": 16384 + 32768 + 4096 + 8192 + 8192 + 8 * 4096,
-                       "all-to-all": 8 * 8192, "collective-permute": 3 * 256}
-    assert count == {"all-gather": 2 + 2 + 1 + 8, "all-to-all": 8, "collective-permute": 3}
+    assert traffic == {"all-gather": 256 + 512 + 4096 + 8192 + 8192 + 8 * 4096,
+                       "all-reduce": 16384, "all-to-all": 8 * 8192 + 4096,
+                       "collective-permute": 3 * 256 + 8192}
+    assert count == {"all-gather": 2 + 2 + 1 + 8, "all-reduce": 1, "all-to-all": 9,
+                     "collective-permute": 4}
     # decode: w_r gathered over 'data' (its 'model' shard, 8,192); w_dec1
     # moved onto 'model' by one permute of 8,192 and the LoRA's partial
     # sums [2, 64] (256) all-reduced; r, k, v and g [2, 64] (256) and the
@@ -148,9 +157,14 @@ def test_rg_lru_collective_model_by_hand():
     # leaf bytes: embed 65,536, w_rec_in 8,192, w_a 8,192, wq 32,768,
     # wk 2,048
     traffic, count, _ = _model(cfg, params, "train", 64)
-    # train, 64 tokens, the sequence split. The tied embedding: gathered
-    # whole twice as the head and once more for the lookup, its gradient
-    # reduced twice over each axis. w_rec_in as w_r above; w_a: its
+    # train, 64 tokens, the sequence split. The tied embedding: its 512
+    # rows outnumber both the loss chunk's 256 tokens, so the head splits
+    # the logits by the vocabulary (its 'model' shard, 32,768, gathered
+    # over 'data' twice and its gradient reduced over 'data'; the softmax's
+    # max and sum [2, 64] f32 (512) and the final hidden states' gradient
+    # [2, 64, 64] (16,384) all-reduced over 'model', the states gathered
+    # twice), and a data shard's 128 tokens, so the lookups move (as for
+    # rwkv6-7b above). w_rec_in as w_r above; w_a: its
     # 'model' shard (4,096) gathered over 'data' twice, its gradient over
     # 'data'; wq gathered whole twice, its gradient over both axes; wk
     # over 'data' only, and K and V [2, 64, 1, 16] (4,096) gathered 4
@@ -158,14 +172,18 @@ def test_rg_lru_collective_model_by_hand():
     # [2, 32, 64] (8,192) moved 5 times; the recurrence's input
     # [2, 64, 64] (16,384) gathered twice, the block's input once; their
     # gradients all-reduced, two of R and one of D
+    traffic, count, _ = _model(cfg, params, "train", 64)
     assert traffic == {
-        "all-gather": 2 * 16384 + 2 * 32768 + 16384 + 32768
+        "all-gather": 2 * 16384 + 2 * 8192 + 256 + 512 + 8192
         + 2 * 2048 + 2 * 4096 + 2048 + 2 * 2048 + 2 * 8192 + 2 * 16384 + 2 * 1024 + 4 * 2048
         + 3 * 8192,
-        "all-reduce": 4 * 65536 + 4096 + 4096 + 2 * 32768 + 2 * 2048 + 2 * 4096 + 3 * 16384,
-        "all-to-all": 5 * 4096}
-    assert count == {"all-gather": 6 + 5 + 2 + 4 + 2 + 4 + 3,
-                     "all-reduce": 4 + 1 + 1 + 2 + 2 + 2 + 3, "all-to-all": 5}
+        "all-reduce": 32768 + 2 * 512 + 16384 + 16384 + 4096 + 4096 + 2 * 32768 + 2 * 2048
+        + 2 * 4096 + 3 * 16384,
+        "all-to-all": 5 * 4096 + 4096 + 8192,
+        "collective-permute": 8192 + 16384}
+    assert count == {"all-gather": 7 + 5 + 2 + 4 + 2 + 4 + 3,
+                     "all-reduce": 5 + 1 + 1 + 2 + 2 + 2 + 3, "all-to-all": 7,
+                     "collective-permute": 2}
     # decode: the tied embedding gathered over 'data' as the head (its
     # 'model' shard, 32,768); w_rec_in, w_a and wq likewise; the attention
     # layer's cache split on its sequence (one KV head): wk moved onto

@@ -1,0 +1,13 @@
+"""The benchmark's CPU tests run from the repository root:
+
+    python -m pytest -q graftbench/tests
+
+They import the port from ``src/`` and the benchmark from the root."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT, ROOT / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))

@@ -10,6 +10,10 @@ The PyTorch port's one supported entry point, mirroring ``graftdb``:
     print(session.explain_graft(query).render())   # EXPLAIN GRAFT
     result = fut.result()
 
+    session.start_trace()                        # the program's own spans
+    ...
+    trace = session.stop_trace()                 # graftdb_torch.Trace
+
     serving = graftdb_torch.connect_serving(fold=True)  # KV-prefix folding
 
 ``EngineConfig()`` runs the data plane on the CUDA card; pass
@@ -33,6 +37,7 @@ from repro_torch.api import (
     ServingSession,
     Session,
     TorchBackend,
+    Trace,
     analyze_cohort,
     analyze_query,
     connect,
@@ -62,5 +67,6 @@ __all__ = [
     "ReferenceBackend",
     "TorchBackend",
     "resolve_backend",
+    "Trace",
     "__version__",
 ]

@@ -15,6 +15,7 @@ supported surface.
 """
 
 from ..core.faults import FaultPlan
+from ..core.trace import Trace
 from .backends import ExecutionBackend, ReferenceBackend, TorchBackend, resolve_backend
 from .config import EngineConfig, ServingConfig
 from .explain import (
@@ -48,4 +49,5 @@ __all__ = [
     "ReferenceBackend",
     "TorchBackend",
     "resolve_backend",
+    "Trace",
 ]

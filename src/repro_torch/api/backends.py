@@ -26,6 +26,12 @@ never touches them — and the state's mark log patches exactly the re-ORed
 entries in place (``index_copy_``), so steady-state maintenance is
 O(appended + marked), not O(entries). Every 32-bit word is held in an
 int32 tensor with the same bits.
+
+Under a program trace (``core/trace.py``) each of the five engine calls
+is a ``backend.<call>`` span; inside them ``backend.table`` (key inserts
+with the table's upload, mirror syncs), ``backend.fallback`` (a declined
+probe served by the reference path) and ``backend.wait`` (the waits for
+the card); and every host<->device copy counts its logical bytes.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Optional, Protocol, Tuple, runtime_checkable
 import numpy as np
 import torch
 
+from ..core import trace as _trace
 from ..core.state import SharedHashBuildState, _bincount_segment_sum
 from ..core.visibility import join_words, split_words
 from ..kernels.fused_chain import chain_launch, split_outputs, total_order_bound, total_order_u32
@@ -159,6 +166,9 @@ class _Staging:
 
     def upload(self) -> None:
         self.dev[: self.used].copy_(self.host[: self.used], non_blocking=True)
+        tr = _trace.active
+        if tr is not None:
+            tr.h2d(4 * self.used)
 
     def fetch(self, out: torch.Tensor) -> np.ndarray:
         """``out`` (int32, contiguous) in host memory, in its shape, after
@@ -166,12 +176,20 @@ class _Staging:
         n = out.numel()
         self.out = self._grow(self.out, n, False)
         self.out[:n].copy_(out.view(-1), non_blocking=True)
+        tr = _trace.active
+        if tr is not None:
+            tr.d2h(4 * n)
         self.wait()
         return self.out[:n].numpy().reshape(out.shape)
 
     def wait(self) -> None:
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.wait")
         if self.pinned:
             torch.cuda.synchronize(self.device)
+        if tr is not None:
+            tr.close(span)
 
 
 class _ProbeTable:
@@ -341,7 +359,11 @@ class TorchBackend:
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         """A fresh device copy of a host array, 32-bit words as int32."""
-        return torch.from_numpy(_i32(a)).to(self.device, copy=True)
+        a = _i32(a)
+        tr = _trace.active
+        if tr is not None:
+            tr.h2d(a.nbytes)
+        return torch.from_numpy(a).to(self.device, copy=True)
 
     def _staged_keys(self, keycodes: np.ndarray) -> torch.Tensor:
         """A probe's keys on the device, through the staging buffers (int32
@@ -355,25 +377,42 @@ class TorchBackend:
 
     # -- probe ---------------------------------------------------------------
     def probe(self, state, keycodes, counters=None):
-        if state.keycode.n == 0 or len(keycodes) == 0:
-            return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
-        table = self._table_for(state)
-        if table is None:
-            self.fallback_probes += 1
-            self.note_fallback("capacity", counters)
-            return self._ref.probe(state, keycodes)
-        if keycodes.min() < 0 or keycodes.max() > self._KEY_LIMIT:
-            self.fallback_probes += 1
-            self.note_fallback("keyrange", counters)
-            return self._ref.probe(state, keycodes)
-        tkeys, tones, slot_entry = table
-        keys = self._staged_keys(keycodes)
-        # lens off: pure key match, an all-ones mask over all-ones words
-        found_slots = self._staging.fetch(hash_probe_lens(keys, tkeys, tones, 0xFFFFFFFF))
-        self.kernel_probes += 1
-        probe_idx = np.flatnonzero(found_slots >= 0).astype(np.int64)
-        entry_idx = slot_entry[found_slots[probe_idx]]
-        return probe_idx, entry_idx
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.probe", len(keycodes))
+        try:
+            if state.keycode.n == 0 or len(keycodes) == 0:
+                return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+            table = self._table_for(state)
+            if table is None:
+                self.fallback_probes += 1
+                self.note_fallback("capacity", counters)
+                return self._fallback_probe(state, keycodes)
+            if keycodes.min() < 0 or keycodes.max() > self._KEY_LIMIT:
+                self.fallback_probes += 1
+                self.note_fallback("keyrange", counters)
+                return self._fallback_probe(state, keycodes)
+            tkeys, tones, slot_entry = table
+            keys = self._staged_keys(keycodes)
+            # lens off: pure key match, an all-ones mask over all-ones words
+            found_slots = self._staging.fetch(hash_probe_lens(keys, tkeys, tones, 0xFFFFFFFF))
+            self.kernel_probes += 1
+            probe_idx = np.flatnonzero(found_slots >= 0).astype(np.int64)
+            entry_idx = slot_entry[found_slots[probe_idx]]
+            return probe_idx, entry_idx
+        finally:
+            if tr is not None:
+                tr.close(span)
+
+    def _fallback_probe(self, state, keycodes):
+        """A declined probe, served by the reference path on the host."""
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.fallback", len(keycodes))
+        out = self._ref.probe(state, keycodes)
+        if tr is not None:
+            tr.close(span)
+        return out
 
     def probe_visible(self, state, keycodes, qid):
         """Single-query probe with the state lens fused in-kernel.
@@ -383,30 +422,37 @@ class TorchBackend:
         need predicate evaluation — unless routed through ``probe_chain``'s
         compiled form; unservable tables fall back entirely). The lens
         words are entry-indexed 32-bit pairs, so any slot 0..63 serves."""
-        if state.grants.get(qid):
-            return None
-        slot = state.slots.peek(qid)
-        if slot is None:
-            return None
-        if state.keycode.n == 0 or len(keycodes) == 0:
-            # decline instead of returning the empty pair: keeps the
-            # kernel_lens_probes backend attr == engine counter invariant
-            return None
-        table = self._table_for(state)
-        if table is None or keycodes.min() < 0 or keycodes.max() > self._KEY_LIMIT:
-            return None
-        ent = self._tables[state]
-        self._sync_mirrors(ent, state)
-        keys = self._staged_keys(keycodes)
-        bit = 1 << slot  # the lens mask, by value
-        found = self._staging.fetch(hash_probe_lens64(
-            keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi, (bit & 0xFFFFFFFF, bit >> 32)
-        ))
-        self.kernel_probes += 1
-        self.kernel_lens_probes += 1
-        probe_idx = np.flatnonzero(found >= 0).astype(np.int64)
-        entry_idx = ent.slot_entry[found[probe_idx]]
-        return probe_idx, entry_idx
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.probe_visible", len(keycodes))
+        try:
+            if state.grants.get(qid):
+                return None
+            slot = state.slots.peek(qid)
+            if slot is None:
+                return None
+            if state.keycode.n == 0 or len(keycodes) == 0:
+                # decline instead of returning the empty pair: keeps the
+                # kernel_lens_probes backend attr == engine counter invariant
+                return None
+            table = self._table_for(state)
+            if table is None or keycodes.min() < 0 or keycodes.max() > self._KEY_LIMIT:
+                return None
+            ent = self._tables[state]
+            self._sync_mirrors(ent, state)
+            keys = self._staged_keys(keycodes)
+            bit = 1 << slot  # the lens mask, by value
+            found = self._staging.fetch(hash_probe_lens64(
+                keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi, (bit & 0xFFFFFFFF, bit >> 32)
+            ))
+            self.kernel_probes += 1
+            self.kernel_lens_probes += 1
+            probe_idx = np.flatnonzero(found >= 0).astype(np.int64)
+            entry_idx = ent.slot_entry[found[probe_idx]]
+            return probe_idx, entry_idx
+        finally:
+            if tr is not None:
+                tr.close(span)
 
     def probe_visible_multi(self, state, keycodes):
         """Multi-member probe with the packed lens words gathered in-kernel
@@ -417,22 +463,29 @@ class TorchBackend:
         and identical to ``probe`` — ownership filtering happens in the
         runtime's packed translation — so results stay bit-identical to
         the reference path for every member count and any slot 0..63."""
-        if state.keycode.n == 0 or len(keycodes) == 0:
-            return None
-        table = self._table_for(state)
-        if table is None or keycodes.min() < 0 or keycodes.max() > self._KEY_LIMIT:
-            return None
-        ent = self._tables[state]
-        self._sync_mirrors(ent, state)
-        keys = self._staged_keys(keycodes)
-        rows = hash_probe_lens_multi64(keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi)
-        found, wlo, whi = self._staging.fetch(rows[0]._base)  # the [3, N] buffer
-        self.kernel_probes += 1
-        self.kernel_multi_probes += 1
-        probe_idx = np.flatnonzero(found >= 0).astype(np.int64)
-        entry_idx = ent.slot_entry[found[probe_idx]]
-        vis_words = join_words(wlo.view(np.uint32)[probe_idx], whi.view(np.uint32)[probe_idx])
-        return probe_idx, entry_idx, vis_words
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.probe_visible_multi", len(keycodes))
+        try:
+            if state.keycode.n == 0 or len(keycodes) == 0:
+                return None
+            table = self._table_for(state)
+            if table is None or keycodes.min() < 0 or keycodes.max() > self._KEY_LIMIT:
+                return None
+            ent = self._tables[state]
+            self._sync_mirrors(ent, state)
+            keys = self._staged_keys(keycodes)
+            rows = hash_probe_lens_multi64(keys, ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi)
+            found, wlo, whi = self._staging.fetch(rows[0]._base)  # the [3, N] buffer
+            self.kernel_probes += 1
+            self.kernel_multi_probes += 1
+            probe_idx = np.flatnonzero(found >= 0).astype(np.int64)
+            entry_idx = ent.slot_entry[found[probe_idx]]
+            vis_words = join_words(wlo.view(np.uint32)[probe_idx], whi.view(np.uint32)[probe_idx])
+            return probe_idx, entry_idx, vis_words
+        finally:
+            if tr is not None:
+                tr.close(span)
 
     # -- fused stage chain (DESIGN.md §13) -----------------------------------
     def probe_chain(self, cplan, cols, bits, host_keys, counters=None):
@@ -451,175 +504,182 @@ class TorchBackend:
         chains — the sink visibility/provenance words. Device parameter
         uploads are cached on the plan (``cplan["_dev"]``), so steady-state
         morsels ship only the row-length arrays."""
-        stages = cplan["stages"]
-        n = len(bits)
-        if n == 0:
-            return None
-
-        # collect per-state mirror needs across the chain
-        needs: dict = {}
-
-        def need(state):
-            nd = needs.get(id(state))
-            if nd is None:
-                nd = needs[id(state)] = {
-                    "state": state,
-                    "em": False,
-                    "ords": set(),
-                    "keys": set(),
-                }
-            return nd
-
-        for st in stages:
-            state = st["state"]
-            if state.keycode.n == 0:
-                return None  # no rows can survive; the staged path is as cheap
-            need(state)
-            key = st["key"]
-            if key[0] == "entry":
-                need(stages[key[1]]["state"])["keys"].add(key[2])
-            if st["grants"]:
-                nd = need(state)
-                nd["em"] = True
-                for _, _, bounds in st["grants"]:
-                    for a, _, _ in bounds:
-                        nd["ords"].add(a)
-            f = st["filter"]
-            if f is not None:
-                for ref in f["attrs"]:
-                    if ref[0] == "entry":
-                        need(stages[ref[1]]["state"])["ords"].add(ref[2])
-        for st in stages:
-            if self._table_for(st["state"]) is None:
-                self.note_fallback("capacity", counters)
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.probe_chain", len(bits))
+        try:
+            stages = cplan["stages"]
+            n = len(bits)
+            if n == 0:
                 return None
-        for nd in needs.values():
-            state = nd["state"]
-            ent = self._tables[state]
-            self._sync_mirrors(
-                ent,
-                state,
-                need_em=nd["em"],
-                ord_attrs=sorted(nd["ords"]),
-                key_attrs=sorted(nd["keys"]),
-            )
-            for a in nd["keys"]:
-                if a in ent.badkeys:
-                    self.note_fallback("keyrange", counters)
-                    return None
 
-        npad = 8
-        while npad < n:
-            npad *= 2
-        # every row input goes through the staging buffers, padded in place
-        # (dead rows: zero words, EMPTY keys): the ownership halves, one key
-        # array per host-key stage, two per host filter column
-        n_rows = 2
-        for st in stages:
-            n_rows += st["key"][0] == "host"
-            f = st["filter"]
-            if f is not None:
-                n_rows += 2 * sum(ref[0] == "host" for ref in f["attrs"])
-        stage = self._staging
-        stage.begin(n_rows, npad)
-        halves = np.ascontiguousarray(bits, dtype="<u8").view("<u4")
-        arrays = [stage.row(halves[0::2]), stage.row(halves[1::2])]
-        spec_stages = []
-        dev = cplan["_dev"]
-        for si, st in enumerate(stages):
-            ent = self._tables[st["state"]]
-            key = st["key"]
-            if key[0] == "host":
-                kc = host_keys[si]
-                if len(kc) and (kc.min() < 0 or kc.max() > self._KEY_LIMIT):
-                    self.note_fallback("keyrange", counters)
+            # collect per-state mirror needs across the chain
+            needs: dict = {}
+
+            def need(state):
+                nd = needs.get(id(state))
+                if nd is None:
+                    nd = needs[id(state)] = {
+                        "state": state,
+                        "em": False,
+                        "ords": set(),
+                        "keys": set(),
+                    }
+                return nd
+
+            for st in stages:
+                state = st["state"]
+                if state.keycode.n == 0:
+                    return None  # no rows can survive; the staged path is as cheap
+                need(state)
+                key = st["key"]
+                if key[0] == "entry":
+                    need(stages[key[1]]["state"])["keys"].add(key[2])
+                if st["grants"]:
+                    nd = need(state)
+                    nd["em"] = True
+                    for _, _, bounds in st["grants"]:
+                        for a, _, _ in bounds:
+                            nd["ords"].add(a)
+                f = st["filter"]
+                if f is not None:
+                    for ref in f["attrs"]:
+                        if ref[0] == "entry":
+                            need(stages[ref[1]]["state"])["ords"].add(ref[2])
+            for st in stages:
+                if self._table_for(st["state"]) is None:
+                    self.note_fallback("capacity", counters)
                     return None
-                key_mode = -1
-                arrays.append(stage.row(kc, EMPTY))
-            else:
-                key_mode = key[1]
-                oent = self._tables[stages[key_mode]["state"]]
-                arrays.append(oent.keycols[key[2]][0])
-            arrays += [ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi]
-            tt = dev.get(("tt", si))
-            if tt is None:
-                tlo, thi = split_words(st["tables"].ravel())
-                tt = (self._to_dev(tlo.reshape(8, 256)), self._to_dev(thi.reshape(8, 256)))
-                dev[("tt", si)] = tt
-            arrays += [tt[0], tt[1]]
-            n_grants = len(st["grants"])
-            g_attrs = 0
-            if n_grants:
-                gp = dev.get(("g", si))
-                if gp is None:
-                    gp = self._grant_params(st["grants"])
-                    dev[("g", si)] = gp
-                gattr_names, gbit, gallow, gcon, glo, ghi = gp
-                g_attrs = len(gattr_names)
-                arrays += [ent.jelo, ent.jehi, gbit, gallow, gcon, glo, ghi]
-                for a in gattr_names:
-                    rec = ent.ords[a]
-                    arrays += [rec[0], rec[1]]
-            f = st["filter"]
-            fspec = None
-            if f is not None and len(f["attrs"]):
-                srcs = []
-                for ref in f["attrs"]:
-                    if ref[0] == "host":
-                        vh, vl = total_order_u32(np.asarray(cols[ref[1]], dtype=np.float64))
-                        arrays += [stage.row(vh), stage.row(vl)]
-                        srcs.append(-1)
-                    else:
-                        rec = self._tables[stages[ref[1]]["state"]].ords[ref[2]]
+            for nd in needs.values():
+                state = nd["state"]
+                ent = self._tables[state]
+                self._sync_mirrors(
+                    ent,
+                    state,
+                    need_em=nd["em"],
+                    ord_attrs=sorted(nd["ords"]),
+                    key_attrs=sorted(nd["keys"]),
+                )
+                for a in nd["keys"]:
+                    if a in ent.badkeys:
+                        self.note_fallback("keyrange", counters)
+                        return None
+
+            npad = 8
+            while npad < n:
+                npad *= 2
+            # every row input goes through the staging buffers, padded in place
+            # (dead rows: zero words, EMPTY keys): the ownership halves, one key
+            # array per host-key stage, two per host filter column
+            n_rows = 2
+            for st in stages:
+                n_rows += st["key"][0] == "host"
+                f = st["filter"]
+                if f is not None:
+                    n_rows += 2 * sum(ref[0] == "host" for ref in f["attrs"])
+            stage = self._staging
+            stage.begin(n_rows, npad)
+            halves = np.ascontiguousarray(bits, dtype="<u8").view("<u4")
+            arrays = [stage.row(halves[0::2]), stage.row(halves[1::2])]
+            spec_stages = []
+            dev = cplan["_dev"]
+            for si, st in enumerate(stages):
+                ent = self._tables[st["state"]]
+                key = st["key"]
+                if key[0] == "host":
+                    kc = host_keys[si]
+                    if len(kc) and (kc.min() < 0 or kc.max() > self._KEY_LIMIT):
+                        self.note_fallback("keyrange", counters)
+                        return None
+                    key_mode = -1
+                    arrays.append(stage.row(kc, EMPTY))
+                else:
+                    key_mode = key[1]
+                    oent = self._tables[stages[key_mode]["state"]]
+                    arrays.append(oent.keycols[key[2]][0])
+                arrays += [ent.jkeys, ent.jentry, ent.jvlo, ent.jvhi]
+                tt = dev.get(("tt", si))
+                if tt is None:
+                    tlo, thi = split_words(st["tables"].ravel())
+                    tt = (self._to_dev(tlo.reshape(8, 256)), self._to_dev(thi.reshape(8, 256)))
+                    dev[("tt", si)] = tt
+                arrays += [tt[0], tt[1]]
+                n_grants = len(st["grants"])
+                g_attrs = 0
+                if n_grants:
+                    gp = dev.get(("g", si))
+                    if gp is None:
+                        gp = self._grant_params(st["grants"])
+                        dev[("g", si)] = gp
+                    gattr_names, gbit, gallow, gcon, glo, ghi = gp
+                    g_attrs = len(gattr_names)
+                    arrays += [ent.jelo, ent.jehi, gbit, gallow, gcon, glo, ghi]
+                    for a in gattr_names:
+                        rec = ent.ords[a]
                         arrays += [rec[0], rec[1]]
-                        srcs.append(ref[1])
-                fp = dev.get(("f", si))
-                if fp is None:
-                    fp = self._filter_params(f)
-                    dev[("f", si)] = fp
-                arrays += list(fp)
-                fspec = (f["n_members"], tuple(srcs))
-            spec_stages.append((key_mode, n_grants, g_attrs, fspec))
-        sink = cplan["sink"]
-        if sink is not None:
-            sp = dev.get("sink")
-            if sp is None:
-                vt, et = sink
-                vlo, vhi = split_words(vt.ravel())
-                elo, ehi = split_words(et.ravel())
-                sp = tuple(self._to_dev(x.reshape(8, 256)) for x in (vlo, vhi, elo, ehi))
-                dev["sink"] = sp
-            arrays += list(sp)
-        spec = (tuple(spec_stages), sink is not None)
-        # one copy up, the launch, one copy down, one wait
-        stage.upload()
-        flat = stage.fetch(chain_launch(spec, arrays, mesh=self.mesh))
-        out = split_outputs(spec, npad, flat)
-        n_stages = len(stages)
+                f = st["filter"]
+                fspec = None
+                if f is not None and len(f["attrs"]):
+                    srcs = []
+                    for ref in f["attrs"]:
+                        if ref[0] == "host":
+                            vh, vl = total_order_u32(np.asarray(cols[ref[1]], dtype=np.float64))
+                            arrays += [stage.row(vh), stage.row(vl)]
+                            srcs.append(-1)
+                        else:
+                            rec = self._tables[stages[ref[1]]["state"]].ords[ref[2]]
+                            arrays += [rec[0], rec[1]]
+                            srcs.append(ref[1])
+                    fp = dev.get(("f", si))
+                    if fp is None:
+                        fp = self._filter_params(f)
+                        dev[("f", si)] = fp
+                    arrays += list(fp)
+                    fspec = (f["n_members"], tuple(srcs))
+                spec_stages.append((key_mode, n_grants, g_attrs, fspec))
+            sink = cplan["sink"]
+            if sink is not None:
+                sp = dev.get("sink")
+                if sp is None:
+                    vt, et = sink
+                    vlo, vhi = split_words(vt.ravel())
+                    elo, ehi = split_words(et.ravel())
+                    sp = tuple(self._to_dev(x.reshape(8, 256)) for x in (vlo, vhi, elo, ehi))
+                    dev["sink"] = sp
+                arrays += list(sp)
+            spec = (tuple(spec_stages), sink is not None)
+            # one copy up, the launch, one copy down, one wait
+            stage.upload()
+            flat = stage.fetch(chain_launch(spec, arrays, mesh=self.mesh))
+            out = split_outputs(spec, npad, flat)
+            n_stages = len(stages)
 
-        def words(lo, hi):
-            return join_words(lo[:n].view(np.uint32), hi[:n].view(np.uint32))
+            def words(lo, hi):
+                return join_words(lo[:n].view(np.uint32), hi[:n].view(np.uint32))
 
-        res = {
-            "bits": words(out[0], out[1]),
-            "entries": [out[2 + s][:n].astype(np.int64) for s in range(n_stages)],
-            "stats": out[2 + n_stages].astype(np.int64),
-            "slots": out[3 + n_stages].astype(np.int64),
-        }
-        if sink is not None:
-            res["vismask"] = words(out[4 + n_stages], out[5 + n_stages])
-            res["emask"] = words(out[6 + n_stages], out[7 + n_stages])
-        self.kernel_probes += 1
-        self.chain_launches += 1
-        stats = res["stats"]
-        for s, st in enumerate(stages):
-            if stats[s, 0] == 0:
-                break
-            if st["use_post"]:
-                self.kernel_lens_probes += 1
-            else:
-                self.kernel_multi_probes += 1
-        return res
+            res = {
+                "bits": words(out[0], out[1]),
+                "entries": [out[2 + s][:n].astype(np.int64) for s in range(n_stages)],
+                "stats": out[2 + n_stages].astype(np.int64),
+                "slots": out[3 + n_stages].astype(np.int64),
+            }
+            if sink is not None:
+                res["vismask"] = words(out[4 + n_stages], out[5 + n_stages])
+                res["emask"] = words(out[6 + n_stages], out[7 + n_stages])
+            self.kernel_probes += 1
+            self.chain_launches += 1
+            stats = res["stats"]
+            for s, st in enumerate(stages):
+                if stats[s, 0] == 0:
+                    break
+                if st["use_post"]:
+                    self.kernel_lens_probes += 1
+                else:
+                    self.kernel_multi_probes += 1
+            return res
+        finally:
+            if tr is not None:
+                tr.close(span)
 
     def _grant_params(self, grants):
         """Device parameter matrices of one stage's compiled grants: the
@@ -675,7 +735,11 @@ class TorchBackend:
     def _patch(self, buf, idx, vals):
         """Scatter ``vals`` into the device mirror at entry ids ``idx``, in
         place (``index_copy_``); the ids are unique."""
-        idx_t = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(self.device)
+        idx = np.asarray(idx, dtype=np.int64)
+        tr = _trace.active
+        if tr is not None:
+            tr.h2d(idx.nbytes)
+        idx_t = torch.from_numpy(idx).to(self.device)
         buf.index_copy_(0, idx_t, self._to_dev(vals))
         return buf
 
@@ -689,7 +753,11 @@ class TorchBackend:
         (``mirror_full_regathers`` counts them). Total-order column
         encodings and int32 key-column mirrors are append-only — retained
         column values never change after insert. Key columns whose values
-        leave the int32 key range mark ``badkeys`` sticky."""
+        leave the int32 key range mark ``badkeys`` sticky. Traced as
+        ``backend.table``, as is ``_insert_keys``."""
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.table", ent.n)
         n = ent.n
         if ent.jvlo is None or ent.ecap < n:
             cap = max(ent.ecap, 256)
@@ -792,6 +860,8 @@ class TorchBackend:
                 idx = np.arange(start, n, dtype=np.int64)
                 self._patch(rec[0], idx, i32)
                 rec[1] = n
+        if tr is not None:
+            tr.close(span)
 
     def _table_for(self, state) -> Optional[Tuple[object, object, np.ndarray]]:
         """Open-addressing probe table over the state's SoA keycodes, cached
@@ -810,7 +880,12 @@ class TorchBackend:
         if ent.bad:
             return None
         if ent.n < n:
+            tr = _trace.active
+            if tr is not None:
+                span = tr.open("backend.table", n - ent.n)
             self._insert_keys(ent, state.keycode.data, n)
+            if tr is not None:
+                tr.close(span)
             if ent.bad:
                 return None
         return ent.jkeys, ent.jones, ent.slot_entry
@@ -919,28 +994,51 @@ class TorchBackend:
         stays on the device as the probe mirror, with a host copy for
         later incremental inserts and the slot -> entry map."""
         tkeys, tentry, ok = hash_build_insert(self._to_dev(keys), cap)
-        if int(ok[0]) == 0:
-            return False
-        ent.jkeys, ent.jentry = tkeys, tentry
-        ent.tkeys = tkeys.to("cpu", copy=True).numpy()
-        ent.slot_entry = tentry.cpu().numpy().astype(np.int64)
-        return True
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.wait")
+            tr.d2h(4)
+        ok = int(ok[0]) != 0
+        if ok:
+            ent.jkeys, ent.jentry = tkeys, tentry
+            ent.tkeys = tkeys.to("cpu", copy=True).numpy()
+            ent.slot_entry = tentry.cpu().numpy().astype(np.int64)
+            if tr is not None:
+                tr.d2h(4 * (tkeys.numel() + tentry.numel()))
+        if tr is not None:
+            tr.close(span)
+        return ok
 
     # -- segmented aggregation ------------------------------------------------
     def segment_sum(self, gids, values, n_groups):
-        if n_groups == 0 or len(gids) == 0:
-            return np.zeros(n_groups, dtype=np.float64)
-        if not self.use_agg_kernel or n_groups > self.max_kernel_groups:
-            return self._ref.segment_sum(gids, values, n_groups)
-        vals = (
-            np.ones((len(gids), 1), dtype=np.float32)
-            if values is None
-            else np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1, 1)
-        )
-        out = seg_aggregate(
-            self._to_dev(gids), torch.from_numpy(vals).to(self.device), n_groups
-        )
-        return out.cpu().numpy().astype(np.float64)[:, 0]
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("backend.segment_sum", len(gids))
+        try:
+            if n_groups == 0 or len(gids) == 0:
+                return np.zeros(n_groups, dtype=np.float64)
+            if not self.use_agg_kernel or n_groups > self.max_kernel_groups:
+                return self._ref.segment_sum(gids, values, n_groups)
+            vals = (
+                np.ones((len(gids), 1), dtype=np.float32)
+                if values is None
+                else np.asarray(values, dtype=np.float64).astype(np.float32).reshape(-1, 1)
+            )
+            if tr is not None:
+                tr.h2d(vals.nbytes)
+            out = seg_aggregate(
+                self._to_dev(gids), torch.from_numpy(vals).to(self.device), n_groups
+            )
+            if tr is not None:
+                wait = tr.open("backend.wait")
+                tr.d2h(4 * out.numel())
+            out = out.cpu()
+            if tr is not None:
+                tr.close(wait)
+            return out.numpy().astype(np.float64)[:, 0]
+        finally:
+            if tr is not None:
+                tr.close(span)
 
 
 def resolve_backend(spec, device: str = "cuda") -> ExecutionBackend:

@@ -14,9 +14,11 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Iterable, List, Optional
 
+from ..core import trace as _trace
 from ..core.engine import GraftEngine
 from ..core.plans import Query
 from ..core.scheduler import Runner
+from ..core.trace import Trace
 from ..relational.table import Database
 from .config import EngineConfig
 from .explain import GraftExplain, analyze_query
@@ -170,7 +172,14 @@ class Session:
 
             def cb(handle):
                 fut = self._future_for_qid(handle.qid)
-                return on_complete(fut)
+                tr = _trace.active
+                if tr is None:
+                    return on_complete(fut)
+                span = tr.open("client.callback", handle.qid)
+                try:
+                    return on_complete(fut)
+                finally:
+                    tr.close(span)
 
         self._runner.run((), on_complete=cb, max_steps=self.config.max_steps)
         fresh = [h for h in self._engine.completed if h.qid not in self._reported]
@@ -208,6 +217,19 @@ class Session:
         """Cohorts admitted through the batch planner this session, in
         admission order: ``{"cohort": id, "t": time, "plan": CohortPlan}``."""
         return list(self._runner.cohort_log)
+
+    # -- tracing ---------------------------------------------------------------
+    def start_trace(self) -> None:
+        """Start recording the program's host spans and host<->device copy
+        counters (``repro_torch.core.trace``). One trace runs per process:
+        a second start raises."""
+        self._check_open()
+        _trace.start()
+
+    def stop_trace(self) -> Trace:
+        """Stop the running trace and return its records, self seconds and
+        calls by span name, and copy counters. Raises when none runs."""
+        return _trace.stop()
 
     # -- introspection -------------------------------------------------------
     @property

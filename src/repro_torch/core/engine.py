@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..relational.table import Database
+from . import trace as _trace
 from .descriptors import StateSignature, aggregate_signature
 from .faults import FaultPlan, FaultPlane
 from .grafting import all_boundaries, estimate_demand, plan_spine, resolve_boundary
@@ -365,12 +366,17 @@ class GraftEngine:
 
     # -- submission (query grafting, §5.2) ------------------------------------
     def submit(self, query: Query) -> QueryHandle:
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("engine.submit", query.qid)
         now = self.clock.now if self.clock is not None else query.arrival
         handle = QueryHandle(query, now)
         self.handles[query.qid] = handle
         self.active_handles.append(handle)
         self.counters["submitted"] += 1
         self._install_query(handle)
+        if tr is not None:
+            tr.close(span)
         return handle
 
     def _install_query(self, handle: QueryHandle) -> None:
@@ -532,6 +538,9 @@ class GraftEngine:
     def _maybe_complete(self, handle: QueryHandle) -> bool:
         if handle.done or handle.agg_gate is None or not handle.agg_gate.open():
             return False
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("engine.complete", handle.qid)
         result = handle.agg_state.result()
         if handle.orderby is not None:
             result = _apply_orderby(result, handle.orderby)
@@ -542,6 +551,8 @@ class GraftEngine:
         self.completed.append(handle)
         self.counters["completed"] += 1
         self._release(handle)
+        if tr is not None:
+            tr.close(span)
         return True
 
     def _release(self, handle: QueryHandle) -> None:

@@ -62,6 +62,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..relational.table import Table
+from . import trace as _trace
 from .hashindex import MultiKeyIndex
 from .plans import AggSpec, expr_attrs, expr_eval
 from .predicates import AttrConstraint, Conjunction, Pred, TRUE, evaluate, pred_and
@@ -868,9 +869,16 @@ class Pipeline:
         path (§11) — or the retained per-member oracle path when the
         engine disables ``member_major``; slot-overflow members (beyond the
         64-bit word) run the member-at-a-time slow lane."""
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("morsel")
         act = self.active_members_for(part)
         if not act:
+            if tr is not None:
+                tr.close(span)
             return 0.0
+        if tr is not None:
+            tr.tag(span, len(act))
         packed = [m for m in act if m.slot >= 0]
         overflow = [m for m in act if m.slot < 0]
         cost = 0.0
@@ -895,6 +903,8 @@ class Pipeline:
                 finished.append(m)
         for m in finished:
             engine.on_member_finished(self, m)
+        if tr is not None:
+            tr.close(span)
         return cost
 
     # -- member-major fused path (§11) --------------------------------------
@@ -905,10 +915,17 @@ class Pipeline:
         transformations — per-stage cost independent of the member count:
         semijoin visibility is one lens-word translation, stage filters are
         one fused bound-check, sink tagging is one translate + scatter, and
-        aggregate cohorts fold via one (group × member) segmented pass."""
+        aggregate cohorts fold via one (group × member) segmented pass.
+
+        Traced as three spans: ``morsel.filter`` (plan, source bits,
+        compaction), ``morsel.probe`` (the chain or the staged loop) and
+        ``morsel.sink`` (build sink or aggregate cohorts)."""
         n = len(row_ids)
         cm = engine.cost_model
         cost = 0.0
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("morsel.filter", n)
         plan = self._member_major_plan(act)
 
         bits = self._source_bits(act, cols, n, engine)
@@ -925,6 +942,9 @@ class Pipeline:
         # is backend-independent
         if engine.mesh_plan is not None and self.ops and len(did) > 0:
             engine.mesh_plan.note_morsel(encode_keys(cols, self.ops[0].probe_attrs))
+        if tr is not None:
+            tr.close(span)
+            span = tr.open("morsel.probe", len(did))
 
         backend = engine.backend
         served = False
@@ -1033,6 +1053,9 @@ class Pipeline:
                 did = did[keep]
                 bits = bits[keep]
 
+        if tr is not None:
+            tr.close(span)
+            span = tr.open("morsel.sink", len(did))
         # sinks
         if self.build_target is not None and len(did) > 0:
             bt = self.build_target
@@ -1085,6 +1108,8 @@ class Pipeline:
             for m in act:
                 if m.sink is not None and nsel_of.get(m.mid):
                     cost += cm["agg"] * nsel_of[m.mid]
+        if tr is not None:
+            tr.close(span)
         return cost
 
     def _replay_chain(self, engine, plan: dict, cplan: dict, res, cols, did, cost):
@@ -1587,7 +1612,11 @@ class ScanNode:
     def advance(self, engine, part: int = 0) -> float:
         """Emit partition ``part``'s next morsel to every attached pipeline
         with members still owed that shard. Physical read counted once
-        (shared scan)."""
+        (shared scan). Traced as ``scan.advance``, tagged with the rows
+        read."""
+        tr = _trace.active
+        if tr is not None:
+            span = tr.open("scan.advance")
         idx = self.cursors[part]
         if self.zone_maps and not self._wave_possible()[idx]:
             engine.counters["morsels_skipped"] += 1
@@ -1609,11 +1638,15 @@ class ScanNode:
                 for m in finished:
                     engine.on_member_finished(p, m)
             self._bump_cursor(part)
+            if tr is not None:
+                tr.close(span)
             return cost
         start = idx * self.morsel_size
         cols = self.table.morsel(start, self.morsel_size)
         n = len(next(iter(cols.values())))
         row_ids = np.arange(start, start + n, dtype=np.int64)
+        if tr is not None:
+            tr.tag(span, n)
 
         engine.counters["scan_rows"] += n
         engine.counters["scan_bytes"] += n * self.row_bytes
@@ -1622,6 +1655,8 @@ class ScanNode:
         for p in list(self.pipelines):
             cost += p.process(engine, cols, row_ids, part)
         self._bump_cursor(part)
+        if tr is not None:
+            tr.close(span)
         return cost
 
     def detach(self, p: Pipeline) -> None:

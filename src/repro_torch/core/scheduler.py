@@ -38,6 +38,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+from . import trace as _trace
 from .engine import GraftEngine, QueryHandle
 from .grafting import candidate_states, graft_potential
 from .plans import Query
@@ -744,76 +745,83 @@ class Runner:
                 steps += 1
                 if steps > max_steps:
                     raise RuntimeError("executor exceeded max_steps — livelock?")
-                # least-advanced worker takes the next scheduling decision
-                wi = min(range(self.workers), key=lambda i: self.clocks[i].now)
-                wclock = self.clocks[wi]
-                self.clock.current = wclock
-                # due deadlines cancel before anything else at this step
-                self._apply_deadlines(wclock.now, on_complete)
-                # admit due arrivals (query grafting happens at submit)
-                self._admit_due(wclock.now, on_complete)
-                units = extract_ready_units(engine)
-                if not units:
-                    self.clock.current = None
-                    if self._heap:
-                        self.clock.advance_to(self._heap[0][0])
-                        continue
-                    if engine.has_active_work():
-                        # all remaining handles must be completable observers
-                        done = engine.sweep_completions()
-                        if done:
-                            self._after_events(on_complete, done)
+                tr = _trace.active
+                if tr is not None:
+                    span = tr.open("scheduler.step")
+                try:
+                    # least-advanced worker takes the next scheduling decision
+                    wi = min(range(self.workers), key=lambda i: self.clocks[i].now)
+                    wclock = self.clocks[wi]
+                    self.clock.current = wclock
+                    # due deadlines cancel before anything else at this step
+                    self._apply_deadlines(wclock.now, on_complete)
+                    # admit due arrivals (query grafting happens at submit)
+                    self._admit_due(wclock.now, on_complete)
+                    units = extract_ready_units(engine)
+                    if not units:
+                        self.clock.current = None
+                        if self._heap:
+                            self.clock.advance_to(self._heap[0][0])
                             continue
+                        if engine.has_active_work():
+                            # all remaining handles must be completable observers
+                            done = engine.sweep_completions()
+                            if done:
+                                self._after_events(on_complete, done)
+                                continue
+                            if self._admit_queue:
+                                # nothing completable: free the admit queue head
+                                self._force_admit_head(self.clock.now, on_complete)
+                                continue
+                            raise RuntimeError(
+                                f"deadlock: {len(engine.active_handles)} active queries, no ready fragments"
+                            )
                         if self._admit_queue:
-                            # nothing completable: free the admit queue head
                             self._force_admit_head(self.clock.now, on_complete)
                             continue
-                        raise RuntimeError(
-                            f"deadlock: {len(engine.active_handles)} active queries, no ready fragments"
-                        )
-                    if self._admit_queue:
-                        self._force_admit_head(self.clock.now, on_complete)
-                        continue
-                    break
-                # mesh execution (§14): device affinity — partition p's
-                # state shard is resident on device p % workers, so only
-                # that worker's clock may advance it. The least-advanced
-                # worker defers to the least-advanced OWNER of a ready
-                # shard when it owns none itself (deterministic: owners
-                # sorted, ties resolve to the lowest device id).
-                if engine.mesh_plan is not None and self.workers > 1:
-                    owned = [u for u in units if u[1] % self.workers == wi]
-                    if not owned:
-                        owners = sorted({u[1] % self.workers for u in units})
-                        wi = min(owners, key=lambda i: self.clocks[i].now)
-                        wclock = self.clocks[wi]
-                        self.clock.current = wclock
-                        owned = [u for u in units if u[1] % self.workers == wi]
-                    units = owned
-                # round-robin over ready (scan × partition) units
-                unit = None
-                for cand in units:
-                    if (cand[0].sid, cand[1]) > self._rr:
-                        unit = cand
                         break
-                if unit is None:
-                    unit = units[0]
-                node, part = unit
-                self._rr = (node.sid, part)
-                # max-at-barrier: wait for the unit's enabling events, then
-                # re-admit anything that became due during the wait
-                wclock.advance_to(unit_ready_time(node, part))
-                self._admit_due(wclock.now, on_complete)
-                if self._apply_deadlines(wclock.now, on_complete):
-                    continue  # the unit may be gone: re-extract
-                if self.faults is not None and not self._fault_gate(
-                    node, part, wclock, on_complete
-                ):
-                    continue
-                cost = node.advance(engine, part)
-                wclock.tick(cost)
-                self.busy_s[wi] += cost
-                self._after_events(on_complete)
+                    # mesh execution (§14): device affinity — partition p's
+                    # state shard is resident on device p % workers, so only
+                    # that worker's clock may advance it. The least-advanced
+                    # worker defers to the least-advanced OWNER of a ready
+                    # shard when it owns none itself (deterministic: owners
+                    # sorted, ties resolve to the lowest device id).
+                    if engine.mesh_plan is not None and self.workers > 1:
+                        owned = [u for u in units if u[1] % self.workers == wi]
+                        if not owned:
+                            owners = sorted({u[1] % self.workers for u in units})
+                            wi = min(owners, key=lambda i: self.clocks[i].now)
+                            wclock = self.clocks[wi]
+                            self.clock.current = wclock
+                            owned = [u for u in units if u[1] % self.workers == wi]
+                        units = owned
+                    # round-robin over ready (scan × partition) units
+                    unit = None
+                    for cand in units:
+                        if (cand[0].sid, cand[1]) > self._rr:
+                            unit = cand
+                            break
+                    if unit is None:
+                        unit = units[0]
+                    node, part = unit
+                    self._rr = (node.sid, part)
+                    # max-at-barrier: wait for the unit's enabling events, then
+                    # re-admit anything that became due during the wait
+                    wclock.advance_to(unit_ready_time(node, part))
+                    self._admit_due(wclock.now, on_complete)
+                    if self._apply_deadlines(wclock.now, on_complete):
+                        continue  # the unit may be gone: re-extract
+                    if self.faults is not None and not self._fault_gate(
+                        node, part, wclock, on_complete
+                    ):
+                        continue
+                    cost = node.advance(engine, part)
+                    wclock.tick(cost)
+                    self.busy_s[wi] += cost
+                    self._after_events(on_complete)
+                finally:
+                    if tr is not None:
+                        tr.close(span)
         finally:
             self.clock.current = None
         return engine.completed

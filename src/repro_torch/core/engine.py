@@ -213,6 +213,11 @@ class GraftEngine:
             "fallback_probes_capacity",
             "fallback_probes_predicate",
             "agg_cohort_rows",
+            # the cohort fold (§11): first contacts served by appending
+            # or by the member index, and the buckets it reduced
+            "agg_fold_appended_groups",
+            "agg_fold_looked_up_groups",
+            "agg_fold_buckets",
             "overflow_members",
             "partition_merges",
             "partition_probe_merges",

@@ -787,7 +787,7 @@ class ReusePlane:
             p._counts.append(np.asarray(art.arrays[f"p{i}_counts"]))
             if K:
                 # rebuild the derived group-id index in stored gid order
-                p._gidx.lookup_or_insert([gc.data for gc in p.group_cols])
+                p._index().lookup_or_insert([gc.data for gc in p.group_cols])
             else:
                 p._global_ready = True
         st.rows_consumed = meta["rows_consumed"]

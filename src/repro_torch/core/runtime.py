@@ -528,9 +528,17 @@ class _CohortIndex:
     (§11): one batched lookup per morsel maps the cohort's group-key rows
     to cohort-local dense gids; per-(member, partition) translation arrays
     then turn cohort gids into member-local accumulator ids, so the
-    steady-state per-member residue is a gather + scatter — no hashing."""
+    steady-state per-member residue is a gather + scatter — no hashing.
 
-    __slots__ = ("_idx", "_gvals", "maps")
+    ``mapped[(mid, part)]`` counts the cohort gids that member's map has
+    resolved. Distinct gids are distinct group keys, so they map to
+    distinct accumulator ids: when the count equals the partial's group
+    count, the map covers every group the partial holds, and a gid the map
+    has not resolved cannot be one of them. The fold then appends such
+    groups (``SharedAggregateState.append_groups``) instead of hashing
+    their keys again in the member's own index."""
+
+    __slots__ = ("_idx", "_gvals", "maps", "mapped")
 
     def __init__(self, n_keys: int):
         self._idx = MultiKeyIndex(n_keys) if n_keys else None
@@ -540,6 +548,7 @@ class _CohortIndex:
         # assign different ids than the row-level `update` path
         self._gvals: Optional[List[GrowArray]] = None
         self.maps: Dict[tuple, np.ndarray] = {}  # (mid, part) -> local gid
+        self.mapped: Dict[tuple, int] = {}  # (mid, part) -> gids resolved
 
     def resolve(self, key_cols: List[np.ndarray], n: int):
         """(cohort gids for the rows, per-gid key values, n groups)."""
@@ -555,20 +564,24 @@ class _CohortIndex:
         return gids, [gv.data for gv in self._gvals], self._idx.n
 
     def member_map(self, mid: int, part: int, ng: int) -> np.ndarray:
-        """Cohort gid -> member-local accumulator id (-1 = unmapped)."""
+        """Cohort gid -> member-local accumulator id (-1 = unmapped), as a
+        writable view of the first ``ng`` gids; the array under it grows by
+        doubling, so a morsel that adds groups copies no map."""
         key = (mid, part)
         cur = self.maps.get(key)
         if cur is None or len(cur) < ng:
-            grown = np.full(ng, -1, dtype=np.int64)
+            grown = np.full(max(ng, 2 * len(cur) if cur is not None else 0), -1,
+                            dtype=np.int64)
             if cur is not None:
                 grown[: len(cur)] = cur
             self.maps[key] = cur = grown
-        return cur
+        return cur[:ng]
 
     def release(self, mid: int) -> None:
         """Drop a finished member's gid maps (all partitions)."""
         for key in [k for k in self.maps if k[0] == mid]:
             del self.maps[key]
+            self.mapped.pop(key, None)
 
 
 class Pipeline:
@@ -1186,9 +1199,23 @@ class Pipeline:
         ``segment_sum``, and each member's scatter goes through a cached
         cohort-gid -> accumulator-id map — in steady state the per-member
         residue is a gather + scatter over its touched groups, no hashing.
-        Unseen groups enter a member's accumulator index in that member's
-        own first-occurrence row order, so layout and float accumulation
-        stay bit-identical to the per-member oracle path."""
+
+        A morsel costs its kept rows plus its touched groups × members,
+        not the cohort's lifetime groups: where the cohort's gids × members
+        outnumber the morsel's (row, member) pairs, the buckets are the
+        morsel's touched gids (ascending) × members; otherwise the dense
+        gid × member layout is already the smaller one. Either way each
+        bucket sums its pairs in row order.
+
+        Unseen groups enter a member's accumulators in that member's own
+        first-occurrence row order, so layout and float accumulation stay
+        bit-identical to the per-member oracle path. Each group key is
+        hashed once, in the cohort's index: while a member's map covers
+        every group its partial holds (``_CohortIndex.mapped``), its unseen
+        groups are appended (``append_groups``), and their inserts into the
+        member's own index wait until something reads that index. A partial
+        that got groups some other way (a singleton cohort, the overflow
+        lane, a shared or revived state) resolves them by ``map_groups``."""
         sink = ms[0].sink
         k = len(ms)
         cmask = np.uint64(0)
@@ -1217,14 +1244,20 @@ class Pipeline:
         if ci is None:
             ci = self._cohort_state[ck] = _CohortIndex(len(sink.group_keys))
         gids, gvals, ng = ci.resolve([scols[g] for g in sink.group_keys], nkept)
-        pair_gids = gids if pr is None else gids[pr]
-        code = pair_gids * np.int64(k) + pm
-        nbuckets = ng * k
+        if ng * k > n_pairs:
+            # bucket row b is the morsel's b-th smallest touched gid
+            tgids, rowb = np.unique(gids, return_inverse=True)
+            rowb = rowb.reshape(-1)
+            nb = len(tgids)
+        else:
+            tgids, rowb, nb = None, gids, ng
+        code = (rowb if pr is None else rowb[pr]) * np.int64(k) + pm
+        nbuckets = nb * k
         backend = engine.backend
         segment_sum = (
             backend.segment_sum if backend is not None else _bincount_segment_sum
         )
-        counts2d = segment_sum(code, None, nbuckets).reshape(ng, k)
+        counts2d = segment_sum(code, None, nbuckets).reshape(nb, k)
         vals = []
         for a in sink.aggs:
             if a.expr is None:
@@ -1238,19 +1271,21 @@ class Pipeline:
             if a.func == "count":
                 partials.append(counts2d)
             elif a.func in ("sum", "avg"):
-                partials.append(segment_sum(code, v, nbuckets).reshape(ng, k))
+                partials.append(segment_sum(code, v, nbuckets).reshape(nb, k))
             elif a.func == "min":
                 p = np.full(nbuckets, math.inf)
                 np.minimum.at(p, code, v)
-                partials.append(p.reshape(ng, k))
+                partials.append(p.reshape(nb, k))
             elif a.func == "max":
                 p = np.full(nbuckets, -math.inf)
                 np.maximum.at(p, code, v)
-                partials.append(p.reshape(ng, k))
+                partials.append(p.reshape(nb, k))
             else:
                 raise ValueError(a.func)
-        engine.counters["agg_cohort_rows"] += n_pairs
-        # member-major (k, ng) layouts: contiguous per-member row gathers
+        counters = engine.counters
+        counters["agg_cohort_rows"] += n_pairs
+        counters["agg_fold_buckets"] += nbuckets
+        # member-major (k, nb) layouts: contiguous per-member row gathers
         counts2d_t = np.ascontiguousarray(counts2d.T)
         partials_t = [np.ascontiguousarray(p.T) for p in partials]
         tz_m, tz_g = np.nonzero(counts2d_t != 0)
@@ -1260,23 +1295,33 @@ class Pipeline:
             n_touched = int(mb[i + 1] - mb[i])
             if not n_touched:
                 continue
-            full = n_touched == ng  # steady state: every group touched
+            full = n_touched == nb  # every bucket row touched
             touched = None if full else tz_g[mb[i] : mb[i + 1]]
+            # the member's touched cohort gids (None: all ng of them)
+            tg = touched if tgids is None else (tgids if full else tgids[touched])
             nsel = int(nsel_all[i])
             gmap = ci.member_map(m.mid, part, ng)
-            local = gmap if full else gmap[touched]
+            local = gmap if tg is None else gmap[tg]
             if (local < 0).any():
-                # first contact with these groups: insert into the member's
-                # accumulator index in ITS first-occurrence row order
+                # first contact with these groups: they enter the member's
+                # accumulators in ITS first-occurrence row order
                 sel = pm == i
-                g = pair_gids[sel]  # member's rows, ascending
+                g = gids[sel] if pr is None else gids[pr[sel]]  # rows ascend
                 uq, first = np.unique(g, return_index=True)
                 fo = uq[np.argsort(first, kind="stable")]
                 new = fo[gmap[fo] < 0]
-                gmap[new] = m.sink.agg_state.map_groups(
-                    [gv[new] for gv in gvals], part=part
-                )
-                local = gmap if full else gmap[touched]
+                agg_state = m.sink.agg_state
+                mkey = (m.mid, part)
+                n_mapped = ci.mapped.get(mkey, 0)
+                new_keys = [gv[new] for gv in gvals]
+                if new_keys and n_mapped == agg_state.part_groups(part):
+                    gmap[new] = agg_state.append_groups(new_keys, part=part)
+                    counters["agg_fold_appended_groups"] += len(new)
+                else:
+                    gmap[new] = agg_state.map_groups(new_keys, part=part)
+                    counters["agg_fold_looked_up_groups"] += len(new)
+                ci.mapped[mkey] = n_mapped + len(new)
+                local = gmap if tg is None else gmap[tg]
             m.sink.agg_state.fold_groups(
                 local,
                 counts2d_t[i] if full else counts2d_t[i][touched],
@@ -1285,7 +1330,7 @@ class Pipeline:
                 part=part,
             )
             m.rows_sunk += nsel
-            engine.counters["agg_rows"] += nsel
+            counters["agg_rows"] += nsel
             nsel_of[m.mid] = nsel
 
     def _agg_sink_rows(self, engine, m: Member, scols, nsel: int, part: int) -> None:

@@ -773,13 +773,21 @@ class _AggPartial:
     """One partition's partial accumulators — exactly the seed engine's
     accumulator layout (partition 0 of an unpartitioned state IS the seed
     path; P > 1 states merge partials deterministically in partition-id
-    order, DESIGN.md §9)."""
+    order, DESIGN.md §9).
+
+    Groups that a cohort fold appends (``append_groups``) get their ids
+    at once, but enter the group-id index ``_gidx`` later: their key
+    batches wait in ``_pending``, in their original dtypes, and every
+    reader of ``_gidx`` first flushes them in order, one
+    ``lookup_or_insert`` per batch, which hands out exactly the ids the
+    appends already gave (``_index``)."""
 
     __slots__ = (
         "group_keys",
         "aggs",
         "distinct_global",
         "_gidx",
+        "_pending",
         "_global_ready",
         "group_cols",
         "_acc",
@@ -797,6 +805,8 @@ class _AggPartial:
         self._gidx = (
             MultiKeyIndex(len(group_keys), counters=counters) if group_keys else None
         )
+        # appended groups not yet in _gidx: (first id, key batch) in order
+        self._pending: List[Tuple[int, List[np.ndarray]]] = []
         self._global_ready = False  # global aggregate: single group, lazily init
         self.group_cols: List[GrowArray] = [GrowArray(np.float64) for _ in group_keys]
         self._acc: List[GrowArray] = [GrowArray(np.float64) for _ in aggs]
@@ -811,6 +821,34 @@ class _AggPartial:
             acc.append(np.full(n_new, self._init_of(spec)))
         self._counts.append(np.zeros(n_new))
 
+    def _add_groups(self, keys: List[np.ndarray]) -> None:
+        """Append new groups' key values and fresh accumulators."""
+        for gc, col in zip(self.group_cols, keys):
+            gc.append(np.asarray(col, dtype=np.float64))
+        self._new_groups(len(keys[0]))
+
+    def _index(self) -> MultiKeyIndex:
+        """The group-id index, with every appended batch flushed into it."""
+        if self._pending:
+            pending, self._pending = self._pending, []
+            for first, keys in pending:
+                gids, is_new = self._gidx.lookup_or_insert(keys)
+                assert is_new.all() and np.array_equal(
+                    gids, first + np.arange(len(gids))
+                ), "a deferred group insert met a group already in the index"
+        return self._gidx
+
+    def append_groups(self, keys: List[np.ndarray]) -> np.ndarray:
+        """Give groups known to be absent from this partial the next ids, in
+        the given row order, without a lookup: keys and fresh accumulators
+        are appended now, the index insert waits for ``_index``. The
+        caller vouches that no key is already a group here (the cohort
+        fold's count invariant, ``Pipeline._agg_fold_cohort``)."""
+        first = self._counts.n
+        self._add_groups(keys)
+        self._pending.append((first, list(keys)))
+        return first + np.arange(len(keys[0]), dtype=np.int64)
+
     def _group_ids(self, keys: List[np.ndarray], n: int) -> np.ndarray:
         if not keys:
             # global aggregate: single group
@@ -818,13 +856,10 @@ class _AggPartial:
                 self._global_ready = True
                 self._new_groups(1)
             return np.zeros(n, dtype=np.int64)
-        gids, is_new = self._gidx.lookup_or_insert(keys)
-        n_new = int(is_new.sum())
-        if n_new:
+        gids, is_new = self._index().lookup_or_insert(keys)
+        if is_new.any():
             sel = np.flatnonzero(is_new)  # gids[sel] == old n_groups + arange
-            for k, gc in enumerate(self.group_cols):
-                gc.append(np.asarray(keys[k], dtype=np.float64)[sel])
-            self._new_groups(n_new)
+            self._add_groups([np.asarray(k)[sel] for k in keys])
         return gids
 
     def fold_partials(self, gids: np.ndarray, counts, agg_partials) -> None:
@@ -971,12 +1006,26 @@ class SharedAggregateState:
         unseen groups new ids *in the given row order* — the caller passes
         a member's unseen groups in its first-occurrence order, which makes
         accumulator layout bit-identical to row-level ``update``. For
-        global aggregates (no group keys) returns the single group's id."""
+        global aggregates (no group keys) returns the single group's id.
+        Groups appended by ``append_groups`` enter the index first, in
+        their order, so the lookup sees them under the ids they were given."""
         self._check_live()
         part_acc = self._parts[part]
         if not key_cols:
             return part_acc._group_ids([], 1)
         return part_acc._group_ids(list(key_cols), len(key_cols[0]))
+
+    def append_groups(self, key_cols: List[np.ndarray], part: int = 0) -> np.ndarray:
+        """New accumulator ids for groups the caller knows partition
+        ``part`` does not hold, in the given row order, with no hashing
+        (``_AggPartial.append_groups``): the same ids ``map_groups`` would
+        give them. Only for states with group keys."""
+        self._check_live()
+        return self._parts[part].append_groups(list(key_cols))
+
+    def part_groups(self, part: int = 0) -> int:
+        """Groups held by partition ``part``'s accumulators."""
+        return self._parts[part].n_groups
 
     def fold_groups(
         self,

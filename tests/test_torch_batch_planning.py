@@ -25,6 +25,7 @@ import torch
 
 import graftdb
 import graftdb_torch
+from _port_counters import assert_counters_match, assert_stats_match
 from _torch_traces import burst_trace
 from graftdb_torch import EngineConfig, FaultPlan
 from repro.relational import queries as ref_queries
@@ -468,9 +469,9 @@ def _parity_run(db, tdb, qs, **cfg):
             np.testing.assert_allclose(
                 np.asarray(rb[k], np.float64), np.asarray(want[k], np.float64), rtol=1e-9
             )
-        assert b.stats() == a.stats()
+        assert_stats_match(b.stats(), a.stats())
         assert b.explain().render() == a.explain().render()
-    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert_counters_match(s_port.counters, s_ref.counters)
     assert s_port._runner.admission_log == s_ref._runner.admission_log
     assert _cohorts(s_port) == _cohorts(s_ref)
     assert s_port.now == s_ref.now

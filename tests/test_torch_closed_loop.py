@@ -3,7 +3,8 @@ against the reference's ``benchmarks/common.py``.
 
 Every comparison is exact: ``completed``, ``elapsed_s``,
 ``throughput_qph``, ``median_latency_s``, ``p95_latency_s``, the
-``latencies`` list and ``counters`` must be equal, not close. Each run
+``latencies`` list and ``counters`` must be equal, not close (the
+counters as ``_port_counters.assert_counters_match`` holds them). Each run
 holds the port against its own counterpart in the reference:
 
 - ``backend="reference"`` (the NumPy engine, the reference helpers'
@@ -31,6 +32,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from _port_counters import assert_counters_match  # noqa: E402
 from benchmarks import common  # noqa: E402
 from repro_torch.launch import workload  # noqa: E402
 from repro_torch.relational import queries, refexec  # noqa: E402
@@ -71,8 +73,9 @@ def seqs(tdb):
 
 
 def _assert_same_run(got, want):
-    for k in KEYS:
+    for k in KEYS[:-1]:
         assert got[k] == want[k], (k, got[k], want[k])
+    assert_counters_match(got["counters"], want["counters"])
 
 
 def test_get_db_and_client_sequences_equal_the_reference(ref_db, tdb, ref_seqs, seqs):

@@ -26,6 +26,7 @@ import torch
 
 import graftdb
 import graftdb_torch
+from _port_counters import assert_counters_match, assert_stats_match
 from graftdb_torch import EngineConfig, FaultPlan, QueryCancelled
 from repro.relational import queries as ref_queries
 from repro_torch.core.faults import SITES, FaultPlane
@@ -471,8 +472,8 @@ def test_fault_trace_matches_reference(db, tdb, seed):
                 assert set(ra) == set(rb)
                 for k in ra:
                     np.testing.assert_array_equal(rb[k], ra[k])
-            assert b.stats() == a.stats()
-        assert dict(s_port.counters) == dict(s_ref.counters)
+            assert_stats_match(b.stats(), a.stats())
+        assert_counters_match(s_port.counters, s_ref.counters)
         assert s_port.now == s_ref.now
         assert s_port.backend.stats() == s_ref.backend.stats()
         injected += s_port.counters["faults_injected"]
@@ -499,10 +500,10 @@ def test_quarantine_matches_reference(db, tdb):
         runs.append((s, futs))
     (s_ref, f_ref), (s_port, f_port) = runs
     assert s_port.counters["quarantined_states"] >= 1
-    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert_counters_match(s_port.counters, s_ref.counters)
     assert s_port.now == s_ref.now
     for a, b in zip(f_ref, f_port):
-        assert b.stats() == a.stats()
+        assert_stats_match(b.stats(), a.stats())
         assert b.explain().render() == a.explain().render()
         for k, v in a.result().items():
             np.testing.assert_array_equal(b.result()[k], v)

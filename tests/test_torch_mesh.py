@@ -38,6 +38,7 @@ import torch
 
 import graftdb
 import graftdb_torch
+from _port_counters import assert_counters_match, assert_stats_match
 from graftdb_torch import EngineConfig
 from repro.core.hashindex import key_partition as ref_key_partition
 from repro.launch.mesh import make_smoke_mesh as ref_smoke_mesh
@@ -682,9 +683,9 @@ def test_mesh_session_matches_reference(db, tdb, mesh):
         assert set(ra) == set(rb)
         for k in ra:
             np.testing.assert_array_equal(rb[k], ra[k], err_msg=f"q{a.qid}/{k}")
-        assert b.stats() == a.stats()
+        assert_stats_match(b.stats(), a.stats())
         assert b.explain().render() == a.explain().render()
-    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert_counters_match(s_port.counters, s_ref.counters)
     assert s_port.now == s_ref.now
     assert s_port.backend.stats() == s_ref.backend.stats()
     assert s_port.stats()["mesh_data_shards"] == s_ref.stats()["mesh_data_shards"]
@@ -722,7 +723,7 @@ def test_mesh_fault_site_matches_reference(db, tdb, n):
     f_port = s_port.submit_all(_pinned(queries, tdb, qs))
     s_port.run()
     assert [f.status for f in f_port] == [f.status for f in f_ref]
-    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert_counters_match(s_port.counters, s_ref.counters)
     assert s_port.now == s_ref.now
     assert s_port.counters["faults_injected"] > 0
     draws = s_port.engine.faults._calls

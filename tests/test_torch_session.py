@@ -23,6 +23,7 @@ import torch
 
 import graftdb
 import graftdb_torch
+from _port_counters import assert_counters_match, assert_stats_match
 from repro.relational import queries as ref_queries
 from repro_torch.api.backends import TorchBackend
 from repro_torch.relational import queries, refexec
@@ -91,9 +92,9 @@ def _assert_same(s_ref, f_ref, s_port, f_port):
         assert set(ra) == set(rb)
         for k in ra:
             np.testing.assert_array_equal(rb[k], ra[k], err_msg=f"q{a.qid}/{k}")
-        assert b.stats() == a.stats()
+        assert_stats_match(b.stats(), a.stats())
         assert b.explain().render() == a.explain().render()
-    assert dict(s_port.counters) == dict(s_ref.counters)
+    assert_counters_match(s_port.counters, s_ref.counters)
     assert s_port.now == s_ref.now
     assert s_port.backend.stats() == s_ref.backend.stats()
 

@@ -15,8 +15,14 @@ trace. It writes one JSON object: the run's result line, the new metrics,
 three morsel phases by members per morsel, the cross-checks against the
 benchmark's own spans, the longest idle gaps of the card with the
 innermost program span open through most of each, and the program's copy
-counts beside the profiler's memcpy events. ``--site-cost`` times a span
-site with no trace running, in ns, on the host's CPU.
+counts beside the profiler's memcpy events, and what the engine's own
+counters (``Session.counters``) gained inside the window. With
+``--sink-profile 1`` it also profiles the morsel sink's sites (the cohort
+fold, the per-member aggregate sink and ``insert_or_mark``) with
+``cProfile`` and lists the top self-time functions inside them; the
+profiler slows what it wraps, so read the sink's times from a run
+without it. ``--site-cost`` times a span site with no trace running, in
+ns, on the host's CPU.
 """
 
 from __future__ import annotations
@@ -127,8 +133,52 @@ def sink_split(records) -> dict:
     return out
 
 
+SINK_SITES = (("repro_torch.core.runtime", "Pipeline", "_agg_fold_cohort"),
+              ("repro_torch.core.runtime", "Pipeline", "_agg_sink_rows"),
+              ("repro_torch.core.state", "SharedHashBuildState", "insert_or_mark"))
+
+
+def profile_sink_sites(top: int = 25):
+    """Wrap the sink's sites so that ``cProfile`` runs only inside them;
+    returns a function that gives the top ``top`` functions by self time,
+    as [function, calls, self s, cumulative s]."""
+    import cProfile
+    import functools
+    import importlib
+    import pstats
+
+    prof = cProfile.Profile()
+    depth = [0]
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*a, **kw):
+            depth[0] += 1
+            if depth[0] == 1:
+                prof.enable()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    prof.disable()
+        return inner
+
+    for mod, cls, name in SINK_SITES:
+        owner = getattr(importlib.import_module(mod), cls)
+        setattr(owner, name, wrap(getattr(owner, name)))
+
+    def report():
+        st = pstats.Stats(prof).stats
+        rows = sorted(st.items(), key=lambda kv: -kv[1][2])[:top]
+        return [[f"{Path(f).name}:{line}({fn})", nc, tt, ct]
+                for (f, line, fn), (cc, nc, tt, ct, _) in rows]
+
+    return report
+
+
 def traced_run(workload: str, seed: int, seconds: float, with_program: bool,
-               device: str = "cuda", scale_factor=None) -> dict:
+               device: str = "cuda", scale_factor=None, sink_profile: bool = False) -> dict:
     cache = ROOT / "build" / "graftbench"
     os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(cache / "torch_extensions")
@@ -153,6 +203,8 @@ def traced_run(workload: str, seed: int, seconds: float, with_program: bool,
             prof.events = keep
             got["host_mark"] = self.host_mark
             return super().stop()
+
+    sink_report = profile_sink_sites() if sink_profile else None
 
     class Hooks(harness.Hooks):
         def open(self):
@@ -185,6 +237,11 @@ def traced_run(workload: str, seed: int, seconds: float, with_program: bool,
            "throughput_qph": harness.reader("end_to_end", "throughput_qph")(run),
            "setup_s": run.setup_s, "traced_s": run.traced_s,
            "host_spans": {k: v for k, v in run.spans.items() if k != "intervals"}}
+    c0, c1 = run.counters_open, run.counters_close
+    rep["engine_counters"] = {k: v - c0.get(k, 0) for k, v in sorted(c1.items())
+                              if v != c0.get(k, 0)}
+    if sink_report is not None:
+        rep["sink_profile"] = sink_report()
 
     # the profiler's copies, in the device window and inside the program's,
     # on the host's clock as devtrace puts them (its marker is the first event)
@@ -244,6 +301,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=51.0)
     ap.add_argument("--program", type=int, choices=(0, 1), default=1)
     ap.add_argument("--out")
+    ap.add_argument("--sink-profile", type=int, choices=(0, 1), default=0)
     ap.add_argument("--site-cost", action="store_true")
     # a smoke run on the CPU at a small scale: no device trace
     ap.add_argument("--device", default="cuda")
@@ -253,7 +311,7 @@ def main(argv=None) -> int:
         rep = site_cost_ns()
     else:
         rep = traced_run(args.workload, args.seed, args.seconds, bool(args.program),
-                         args.device, args.scale_factor)
+                         args.device, args.scale_factor, bool(args.sink_profile))
     text = json.dumps(rep, default=float)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
